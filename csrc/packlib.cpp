@@ -1,12 +1,11 @@
 // Native weight-packing library — load-time quantization on the host.
 //
 // The reference's only native code is the external torch_int CUDA extension
-// (SURVEY.md §2.7); its TPU compute equivalents are the Pallas kernels.
+// (SURVEY.md §2.7); its compute equivalents are kernels/*.py.
 // This library is the native piece of the *runtime* around them: checkpoint
 // ingestion.  Quantizing weights host-side before device transfer cuts the
-// host→TPU traffic 4-8× (int4/int8 values + scales instead of fp32), which
-// dominates cold-start time for multi-GB models — especially over a
-// tunneled device link.
+// host→device traffic 4-8× (int4/int8 values + scales instead of fp32),
+// which dominates cold-start time for multi-GB models.
 //
 // Exposed via ctypes (utils/native.py builds this with g++ -O3 -fopenmp at
 // first use and caches the .so).  All layouts match kernels/pack.py:

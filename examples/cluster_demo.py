@@ -2,10 +2,10 @@
 
 Runs the ClusterFrontend (serve/cluster.py) with two host replicas of a
 quantized tiny Llama, mixed-length requests, least-outstanding-work routing,
-and prints the per-host / cluster throughput metrics.  On a real pod each
-replica runs on its own host (TP over ICI inside the host); here both step
-in one process, which validates scheduling, determinism, and the metric
-machinery.
+and prints the per-host / cluster throughput metrics.  In a deployment each
+replica runs on its own host (TP over NVLink inside the host); here both
+step in one process, which validates scheduling, determinism, and the
+metric machinery.
 
   python examples/cluster_demo.py
 """

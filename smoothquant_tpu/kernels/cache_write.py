@@ -1,14 +1,10 @@
-"""Fused decode KV-cache writer — one Pallas call per layer instead of the
-XLA chain (rotary-k, int8 quantize fusion, transposes, 4 dynamic-update-
-slices) that cost ~17 us of serialized tiny ops per layer in the decode
-scan.
+"""Decode KV-cache write into a layer-stacked int8 cache (plain XLA).
 
 Writes ONE decode position's K/V into layer `layer` of a STACKED int8
-cache in place (input_output_aliases): the (8, D) S-row block and the
-(H, 128) scale block containing `pos` are read, the target row/lane is
-replaced (select by iota — no dynamic sublane stores), and the block is
-stored back.  K-rotary is applied in-kernel (lane-half swap), matching
-models.common.apply_rotary bit-for-bit in f32.
+cache: rotary on k, per-(slot, head) int8 quantize, and one
+dynamic_update_slice per batch row and field on the carried cache.  XLA
+fuses the rotary and quantize into one elementwise pass and updates the
+carried buffers in place.
 
 The int8 quantization matches QuantKVCache._quantize exactly:
 scale = max(absmax, 1e-8)/127, round-to-nearest-even.
@@ -17,59 +13,23 @@ scale = max(absmax, 1e-8)/127, round-to-nearest-even.
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _rot_half(x):
     d = x.shape[-1]
-    x1 = x[..., : d // 2]
-    x2 = x[..., d // 2:]
-    return jnp.concatenate([-x2, x1], axis=-1)
+    return jnp.concatenate([-x[..., d // 2:], x[..., : d // 2]], axis=-1)
 
 
-def _kernel(idx_ref, k_ref, v_ref, cos_ref, sin_ref,
-            kq_in, vq_in, ks_in, vs_in,
-            kq_ref, vq_ref, ks_ref, vs_ref, *, rotary: bool):
-    # aliased buffers appear as both in- and out-refs (same HBM): read the
-    # block's OLD contents from the input ref, write the merged block to
-    # the output ref.  idx = [layer, pos_0 .. pos_{B-1}]: each batch row
-    # (grid step) writes its OWN position — per-slot continuous batching
-    # and the aligned decode compile to the same kernel
-    pos = idx_ref[1 + pl.program_id(0)]
-    row = pos % 8
-    lane = pos % 128
-
-    cos = cos_ref[0].astype(jnp.float32)                   # (1, D)
-    sin = sin_ref[0].astype(jnp.float32)
-
-    def write_one(new_ref, q_in_ref, s_in_ref, q_out_ref, s_out_ref,
-                  rotary: bool):
-        x = new_ref[0].astype(jnp.float32)                 # (H, D)
-        if rotary:
-            x = x * cos + _rot_half(x) * sin
-        absmax = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
-        scale = jnp.maximum(absmax, 1e-8) / 127.0          # (H, 1)
-        q = jnp.round(x / scale).astype(jnp.int8)          # (H, D)
-
-        old_q = q_in_ref[0, 0]                             # (H, 8, D)
-        rows = jax.lax.broadcasted_iota(jnp.int32, old_q.shape, 1)
-        q_out_ref[0, 0] = jnp.where(rows == row, q[:, None, :], old_q)
-
-        old_s = s_in_ref[0, 0]                             # (H, 128)
-        lanes = jax.lax.broadcasted_iota(jnp.int32, old_s.shape, 1)
-        s_out_ref[0, 0] = jnp.where(lanes == lane,
-                                    scale.astype(jnp.float32), old_s)
-
-    write_one(k_ref, kq_in, ks_in, kq_ref, ks_ref, rotary)
-    write_one(v_ref, vq_in, vs_in, vq_ref, vs_ref, False)
+def _quantize(x):
+    absmax = jnp.max(jnp.abs(x), axis=-1)
+    scale = jnp.maximum(absmax, 1e-8) / 127.0
+    return jnp.round(x / scale[..., None]).astype(jnp.int8), scale
 
 
-@functools.partial(jax.jit, static_argnames=("rotary", "interpret"))
+@functools.partial(jax.jit, static_argnames=("rotary",))
 def write_quant_cache_stacked(
     layer_idx: jax.Array,   # scalar int32
     pos: jax.Array,         # () aligned decode position, or (B,) per-slot
@@ -78,56 +38,50 @@ def write_quant_cache_stacked(
     v_new: jax.Array,       # (B, H_kv, D)
     cos: jax.Array,         # (B, 1, D) rotary tables for this position
     sin: jax.Array,
-    k_q: jax.Array,         # (L, B, H_kv, S, D) int8 — DONATED in place
+    k_q: jax.Array,         # (L, B, H_kv, S, D) int8
     v_q: jax.Array,
     k_scale: jax.Array,     # (L, B, H_kv, S) f32
     v_scale: jax.Array,
     *,
     rotary: bool = True,
-    interpret: bool = False,
 ):
     """Returns updated (k_q, v_q, k_scale, v_scale).  rotary=False for
     non-rotary archs (OPT/Bloom) — cos/sin are ignored."""
-    b, h, d = k_new.shape
-    l_num, _, _, s, _ = k_q.shape
-    # clamp like dynamic_update_slice: a finished slot in a continuous batch
-    # keeps decoding (full-batch step) and its position may run past the
-    # cache end — the clamped write lands on the last (masked) row
-    pos_rows = jnp.minimum(
-        jnp.broadcast_to(jnp.asarray(pos, jnp.int32).reshape(-1), (b,)),
-        s - 1)
-    idx = jnp.concatenate(
-        [jnp.asarray(layer_idx, jnp.int32).reshape(1), pos_rows])
+    kf = k_new.astype(jnp.float32)
+    if rotary:
+        kf = (kf * cos.astype(jnp.float32)
+              + _rot_half(kf) * sin.astype(jnp.float32))
+    kq, ks = _quantize(kf)                                  # (B, H, D), (B, H)
+    vq, vs = _quantize(v_new.astype(jnp.float32))
+    return (put_rows(k_q, kq, layer_idx, pos, 3),
+            put_rows(v_q, vq, layer_idx, pos, 3),
+            put_rows(k_scale, ks, layer_idx, pos, 3),
+            put_rows(v_scale, vs, layer_idx, pos, 3))
 
-    grid = (b,)
-    new_spec = pl.BlockSpec((1, h, d), lambda bb, i: (bb, 0, 0),
-                            memory_space=pltpu.VMEM)
-    cs_spec = pl.BlockSpec((1, 1, d), lambda bb, i: (bb, 0, 0),
-                           memory_space=pltpu.VMEM)
-    q_spec = pl.BlockSpec((1, 1, h, 8, d),
-                          lambda bb, i: (i[0], bb, 0, i[1 + bb] // 8, 0),
-                          memory_space=pltpu.VMEM)
-    s_spec = pl.BlockSpec((1, 1, h, 128),
-                          lambda bb, i: (i[0], bb, 0, i[1 + bb] // 128),
-                          memory_space=pltpu.VMEM)
 
-    outs = pl.pallas_call(
-        functools.partial(_kernel, rotary=rotary),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[new_spec, new_spec, cs_spec, cs_spec,
-                      q_spec, q_spec, s_spec, s_spec],
-            out_specs=[q_spec, q_spec, s_spec, s_spec],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct(k_q.shape, jnp.int8),
-            jax.ShapeDtypeStruct(v_q.shape, jnp.int8),
-            jax.ShapeDtypeStruct(k_scale.shape, jnp.float32),
-            jax.ShapeDtypeStruct(v_scale.shape, jnp.float32),
-        ],
-        # operand order: (scalars, k_new, v_new, cos, sin, k_q, v_q, ks, vs)
-        input_output_aliases={5: 0, 6: 1, 7: 2, 8: 3},
-        interpret=interpret,
-    )(idx, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_scale)
-    return outs
+def put_rows(buf, rows, layer_idx, pos, s_axis: int):
+    """Write rows[b] into buf[layer_idx, b, ..., pos_b, ...] in place.
+
+    buf: (L, B, ...) with the position axis at s_axis; rows: buf's shape
+    without the L and position axes; pos: () aligned or (B,) per-slot.
+    dynamic_update_slice updates the carried buffer in place — one for an
+    aligned position, one per batch row (B is static) otherwise — where a
+    scatter over (L, B, S) with H between them makes XLA transpose the
+    whole cache twice per layer.  dynamic_update_slice clamps a position
+    past the cache end to the last row: a finished slot in a continuous
+    batch keeps decoding, and its write lands on that (masked) row."""
+    li = jnp.asarray(layer_idx, jnp.int32).reshape(())
+    zero = jnp.zeros((), jnp.int32)
+    pos = jnp.asarray(pos, jnp.int32)
+
+    def put(buf, upd, b0, p):
+        start = [li, b0] + [zero] * (buf.ndim - 2)
+        start[s_axis] = p
+        return jax.lax.dynamic_update_slice(buf, upd.astype(buf.dtype), start)
+
+    if pos.ndim == 0:
+        return put(buf, jnp.expand_dims(rows, (0, s_axis)), zero, pos)
+    for bi in range(buf.shape[1]):
+        buf = put(buf, jnp.expand_dims(rows[bi], (0, 1, s_axis)),
+                  jnp.int32(bi), pos[bi])
+    return buf

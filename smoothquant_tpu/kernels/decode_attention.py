@@ -1,27 +1,25 @@
-"""Fused decode attention — single-query flash attention over the KV cache.
+"""Decode attention — one query token per sequence over the KV cache.
 
-Replaces the full-cache XLA einsum path (which materializes (B, H, 1, S)
-scores and, for the INT8 cache, a dequantized bf16 copy of the whole cache)
-with one Pallas kernel that streams K/V tiles HBM→VMEM once, dequantizes
-int8 tiles in-register, and keeps the flash running max/denominator in VMEM
-scratch.  The TPU-native equivalent of the reference's int8 attention BMMs
-(BMM_S8T_S8N_F32T / BMM_S8T_S8N_S8T, /root/reference/smoothquant/opt.py:44-45,79-84)
-— there the probs are requantized to int8; here K/V are int8 with
-per-(head, position) scales applied to the score/prob columns, so the
-numerics match the einsum-over-dequantized-cache path to f32 rounding.
+Two routes, one contract (q (B, H, D); K/V (B, H_kv, S, D) in the cache's
+head-major layout, int8 with per-(head, position) scales or floating point;
+an additive (B, S) f32 bias of 0 / NEG_INF that carries cache fill,
+continuous-batching key holes and sliding windows; optional per-head ALiBi
+slopes; GQA by H = rep·H_kv):
 
-Layout contract: K/V arrive (B, H_kv, S, D) — the cache's native layout —
-with D on lanes and S on sublanes, so every tile read is contiguous.
-GQA queries sharing a KV head ride the sublane axis: q is reshaped
-(B, H_kv, rep, D) and rep-padded to 8.  Validity masking (cache fill level
-and continuous-batching key holes) arrives pre-folded into an additive
-(B, S) f32 bias of 0 / -inf rows.
+  * `_plain` — einsum over the cache as XLA compiles it.  For an int8 cache
+    the scales are applied to the score and probability columns, so the
+    int8 bytes are the only cache operand.
+  * a Pallas flash-decoding kernel through Triton (`backend="triton"`) that
+    reads the int8 K/V and their scales in place.  Each block owns one
+    (sequence, KV head) and one split of the cache positions, keeps the
+    rep query heads of that KV head as the rows of one `dot` (padded to 16,
+    the smallest block `dot` takes), and streams S-tiles with a running
+    max and denominator.  A second pass merges the splits.  Modelled on JAX's
+    `pallas/ops/gpu/decode_attention.py`; written here for the int8 cache,
+    the additive bias and ALiBi.
 
-Grid shape: decode tiles are small (a (TS, D) int8 tile is 64 KB), so a
-per-(batch, head) grid is DMA-issue-latency bound, not bandwidth bound —
-measured 3.4x off the HBM roofline at MHA-32.  The kernel therefore chunks
-H_CHUNK KV heads per grid step (one ~1 MB DMA per operand per step) and
-loops over the chunk in-kernel; scratch rows are per-head slices.
+The layer-stacked form takes the whole (L, …) cache and a layer index, which
+the kernel offsets by itself — the cache is never sliced per layer.
 """
 
 from __future__ import annotations
@@ -32,191 +30,159 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 NEG_INF = -1e30
+_M_FLOOR = NEG_INF / 2   # running-max floor: fully masked tiles give p = 0
+# Cache positions per tile (at most; a power of two), how many blocks to
+# keep in flight (split-S adds blocks until there are this many), and
+# Triton's warps and pipeline stages.
+CONFIG = dict(bs=128, target_blocks=264, num_warps=4, num_stages=2)
 
 
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
+def supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
+    """The kernel's shape rule: a power-of-two head_dim (a Triton block)
+    and whole GQA groups.  Any cache length works (tiles are masked)."""
+    del s
+    return (n_heads % n_kv == 0 and 16 <= head_dim <= 256
+            and head_dim & (head_dim - 1) == 0)
 
 
-def _flash_head(q, k_tile, v_tile, bias_row, ks_row, vs_row, sm_scale,
-                m_ref, l_ref, acc_ref, r0, is_first, is_last, o_ref, j,
-                alibi_row=None, o_b=0, int8_dots=False, flat_d=None):
-    """One (head, S-tile) of streaming softmax.  q: (R, D); k/v tile:
-    (TS, D); bias_row/ks_row/vs_row: (1, TS).  Scratch rows [r0, r0+R);
-    output written to o_ref[0, j] on the last S-tile.  alibi_row: optional
-    (1, TS) per-head additive ALiBi term (slope * key position), applied
-    AFTER the KV-scale multiply like the mask bias.
-
-    int8_dots=True: k_tile/v_tile arrive as RAW int8 and both BMMs run on
-    the MXU's int8 path — q requantized per row (scale sq), probs scaled by
-    the per-position V scale then requantized per row (scale sp) — the
-    reference's BMM_S8T_S8N_F32T / BMM_S8T_S8N_S8T attention semantics
-    (/root/reference/smoothquant/opt.py:44-45,79-84,189-190) with dynamic
-    instead of static requant scales.  Measured SLOWER than the bf16-dot
-    path at decode shapes (41.6 vs 35.7 us same-process A/B, scripts/
-    attn_probe.py): the kernel is DMA-issue-bound and the in-register
-    q/prob quantize chains cost more VPU than the int8→bf16 tile converts
-    they replace — kept as an opt-in for reference-semantics parity."""
-    rp = q.shape[0]
-    rows = slice(r0, r0 + rp)
-    if int8_dots:
-        qf = q.astype(jnp.float32)
-        sq = jnp.maximum(jnp.max(jnp.abs(qf), axis=1, keepdims=True),
-                         1e-8) * (1.0 / 127.0)               # (R, 1)
-        q8 = jnp.round(qf / sq).astype(jnp.int8)
-        scores = jax.lax.dot_general(
-            q8, k_tile,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32) * (sq * sm_scale)              # (R, TS)
-    else:
-        scores = jax.lax.dot_general(
-            q, k_tile,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) * sm_scale                                         # (R, TS)
-    if ks_row is not None:
-        scores = scores * ks_row.astype(jnp.float32)
-    if alibi_row is not None:
-        scores = scores + alibi_row
-    scores = scores + bias_row.astype(jnp.float32)
-
-    m_prev = m_ref[rows, :1]                                 # (R, 1)
-    m_cur = jnp.max(scores, axis=1, keepdims=True)
-    m_new = jnp.where(is_first, m_cur, jnp.maximum(m_prev, m_cur))
-    # guard fully-masked tiles: exp(-inf - -inf) would be NaN
-    m_safe = jnp.maximum(m_new, NEG_INF / 2)
-    # scratch is uninitialized on the first tile — select, never scale it
-    alpha = jnp.where(is_first, 0.0, jnp.exp(m_prev - m_safe))
-
-    p = jnp.exp(scores - m_safe)                             # (R, TS)
-    p_sum = jnp.sum(p, axis=1, keepdims=True)
-    l_new = jnp.where(is_first, p_sum, l_ref[rows, :1] * alpha + p_sum)
-    if vs_row is not None:
-        p = p * vs_row.astype(jnp.float32)
-    if int8_dots:
-        # p >= 0 (exp * positive scale), so the row max IS the absmax
-        sp = jnp.maximum(jnp.max(p, axis=1, keepdims=True),
-                         1e-30) * (1.0 / 127.0)              # (R, 1)
-        p8 = jnp.round(p / sp).astype(jnp.int8)
-        pv = jax.lax.dot_general(
-            p8, v_tile,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32) * sp                           # (R, D)
-    else:
-        pv = jax.lax.dot_general(
-            p.astype(v_tile.dtype), v_tile,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                                    # (R, D)
-
-    acc_new = jnp.where(is_first, pv, acc_ref[rows] * alpha + pv)
-    m_ref[rows, :1] = m_new
-    l_ref[rows, :1] = l_new
-    acc_ref[rows] = acc_new
-
-    @pl.when(is_last)
-    def _():
-        denom = jnp.where(l_new > 0.0, l_new, 1.0)
-        if flat_d is None:
-            o_ref[o_b, j] = (acc_new / denom).astype(o_ref.dtype)
-        else:
-            # flat (bc, 1, hc*d) output: only the real query row (MHA rep=1)
-            o_ref[o_b, 0:1, j * flat_d:(j + 1) * flat_d] = (
-                acc_new[:1] / denom[:1]).astype(o_ref.dtype)
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
 
 
-def _alibi_row(sl_ref, j: int, ts: int):
-    """(1, TS) slope_j * key_position for the current S-tile."""
-    if sl_ref is None:
-        return None
-    col = (pl.program_id(2) * ts
-           + jax.lax.broadcasted_iota(jnp.int32, (1, ts), 1))
-    return sl_ref[0, j:j + 1, :1] * col.astype(jnp.float32)
+def _plain(q, k, v, bias, k_scale, v_scale, alibi_slopes, sm_scale):
+    b, h, d = q.shape
+    n_kv, s = k.shape[1], k.shape[2]
+    rep = h // n_kv
+    cdt = q.dtype
+    qg = q.reshape(b, n_kv, rep, d)
+    scores = jnp.einsum("bgrd,bgsd->bgrs", qg, k.astype(cdt),
+                        preferred_element_type=jnp.float32) * sm_scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, :]
+    if alibi_slopes is not None:
+        pos = jnp.arange(s, dtype=jnp.float32)
+        scores = scores + (alibi_slopes.astype(jnp.float32)
+                           .reshape(1, n_kv, rep, 1) * pos)
+    scores = scores + bias[:, None, None, :]
+    m = jnp.maximum(jnp.max(scores, axis=-1, keepdims=True), _M_FLOOR)
+    p = jnp.exp(scores - m)
+    l = jnp.sum(p, axis=-1, keepdims=True)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    out = jnp.einsum("bgrs,bgsd->bgrd", p.astype(cdt), v.astype(cdt),
+                     preferred_element_type=jnp.float32)
+    out = out / jnp.where(l > 0.0, l, 1.0)
+    return out.reshape(b, h, d).astype(q.dtype)
 
 
-def _kernel_fp(idx_ref, q_ref, k_ref, v_ref, bias_ref, *rest,
-               sm_scale: float, hc: int, rp: int, bc: int, alibi: bool):
-    del idx_ref  # consumed by the index maps
-    sl_ref = rest[0] if alibi else None
-    o_ref, m_ref, l_ref, acc_ref = rest[1 if alibi else 0:]
-    st = pl.program_id(2)
-    n_st = pl.num_programs(2)
-    ts = k_ref.shape[3]
-    for b2 in range(bc):
-        for j in range(hc):
-            _flash_head(
-                q_ref[b2, j], k_ref[0, b2, j], v_ref[0, b2, j],
-                bias_ref[b2, 0], None, None, sm_scale,
-                m_ref, l_ref, acc_ref, (b2 * hc + j) * rp,
-                st == 0, st == n_st - 1, o_ref, j,
-                alibi_row=_alibi_row(sl_ref, j, ts), o_b=b2,
-            )
+def _kernel(idx_ref, q_ref, k_ref, v_ref, bias_ref, *rest, quant: bool,
+            alibi: bool, sm_scale: float, rep: int, rp: int, bs: int,
+            tps: int, s_len: int):
+    rest = list(rest)
+    ks_ref, vs_ref = (rest.pop(0), rest.pop(0)) if quant else (None, None)
+    sl_ref = rest.pop(0) if alibi else None
+    o_ref, m_ref, l_ref = rest
+    bi, hi, sp = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    layer = idx_ref[0]
+    rmask = jnp.arange(rp) < rep
+    q = plgpu.load(q_ref.at[bi, pl.ds(hi * rep, rp), :],
+                   mask=rmask[:, None], other=0)                 # (rp, D)
+    cdt = q.dtype
+    slope = (plgpu.load(sl_ref.at[pl.ds(hi * rep, rp)], mask=rmask,
+                        other=0) if alibi else None)
+
+    def body(t, carry):
+        acc, m_prev, l_prev = carry
+        start = (sp * tps + t) * bs
+        pos = start + jnp.arange(bs)
+        pmask = pos < s_len
+        sl = pl.ds(start, bs)
+        k = plgpu.load(k_ref.at[layer, bi, hi, sl, :],
+                       mask=pmask[:, None], other=0)
+        sc = jnp.dot(q, k.astype(cdt).T,
+                     preferred_element_type=jnp.float32) * sm_scale
+        if quant:
+            sc = sc * plgpu.load(ks_ref.at[layer, bi, hi, sl], mask=pmask,
+                                 other=0)[None, :]
+        if alibi:
+            sc = sc + slope[:, None] * pos.astype(jnp.float32)[None, :]
+        sc = sc + plgpu.load(bias_ref.at[bi, sl], mask=pmask,
+                             other=NEG_INF)[None, :]
+        m_new = jnp.maximum(m_prev, jnp.max(sc, axis=1))
+        alpha = jnp.exp(m_prev - m_new)
+        p = jnp.exp(sc - m_new[:, None])
+        l_new = l_prev * alpha + jnp.sum(p, axis=1)
+        if quant:
+            p = p * plgpu.load(vs_ref.at[layer, bi, hi, sl], mask=pmask,
+                               other=0)[None, :]
+        v = plgpu.load(v_ref.at[layer, bi, hi, sl, :],
+                       mask=pmask[:, None], other=0)
+        acc = acc * alpha[:, None] + jnp.dot(
+            p.astype(cdt), v.astype(cdt), preferred_element_type=jnp.float32)
+        return acc, m_new, l_new
+
+    d = q.shape[1]
+    acc, m, l = jax.lax.fori_loop(
+        0, tps, body,
+        (jnp.zeros((rp, d), jnp.float32),
+         jnp.full((rp,), _M_FLOOR, jnp.float32),
+         jnp.zeros((rp,), jnp.float32)))
+    o_ref[bi, hi, sp] = acc
+    m_ref[bi, hi, sp] = m
+    l_ref[bi, hi, sp] = l
 
 
-def _kernel_int8(idx_ref, q_ref, k_ref, v_ref, bias_ref, ks_ref, vs_ref,
-                 *rest, sm_scale: float, hc: int, rp: int, bc: int,
-                 alibi: bool, int8_dots: bool):
-    del idx_ref
-    sl_ref = rest[0] if alibi else None
-    o_ref, m_ref, l_ref, acc_ref = rest[1 if alibi else 0:]
-    st = pl.program_id(2)
-    n_st = pl.num_programs(2)
-    ts = k_ref.shape[3]
-    for b2 in range(bc):
-        for j in range(hc):
-            k_t, v_t = k_ref[0, b2, j], v_ref[0, b2, j]
-            if not int8_dots:
-                k_t = k_t.astype(jnp.bfloat16)
-                v_t = v_t.astype(jnp.bfloat16)
-            _flash_head(
-                q_ref[b2, j], k_t, v_t,
-                bias_ref[b2, 0], ks_ref[0, b2, j:j + 1],
-                vs_ref[0, b2, j:j + 1],
-                sm_scale, m_ref, l_ref, acc_ref, (b2 * hc + j) * rp,
-                st == 0, st == n_st - 1, o_ref, j,
-                alibi_row=_alibi_row(sl_ref, j, ts), o_b=b2,
-                int8_dots=int8_dots,
-            )
-
-
-def _pick_b_chunk(b: int, n_kv: int, hc: int, ts: int, d: int,
-                  itemsize: int) -> int:
-    """Batches per grid step, on top of the head chunk: targets ~2 MB K and
-    V blocks (single large DMAs — the kernel is DMA-issue bound at 1 MB,
-    and 4 MB blocks thrash VMEM double-buffering)."""
-    target = 2 * 1024 * 1024
-    for c in (4, 2):
-        if b % c == 0 and c * hc * ts * d * itemsize <= target:
-            return c
-    return 1
-
-
-def _pick_h_chunk(n_kv: int, ts: int, d: int, itemsize: int) -> int:
-    """Heads per grid step: big enough to amortize DMA issue latency
-    (the kernel is issue-bound, not bandwidth-bound, below ~1 MB/operand —
-    hc=16 measured 425 GB/s vs 700+ for the matmul kernels), small enough
-    to double-buffer in VMEM (4 MB single-buffer budget).  Must be
-    8-divisible or the full H_kv axis so the (hc, ts) scale block is
-    Mosaic-legal."""
-    budget = 4 * 1024 * 1024
-    if n_kv <= 16 and 2 * n_kv * ts * d * itemsize <= budget:
-        return n_kv
-    for c in (16, 8):  # hc=32 (4 MB/step) measured 3x SLOWER: the 8 MB of
-        #                double-buffered tiles starve the pipeline
-        if n_kv % c == 0 and 2 * c * ts * d * itemsize <= budget:
-            return c
-    return 1  # single-head fallback (scale block legal only for n_kv == 1)
+def _kernel_call(layer_idx, q, k, v, bias, k_scale, v_scale, alibi_slopes,
+                 sm_scale, interpret):
+    b, h, d = q.shape
+    _, _, n_kv, s, _ = k.shape
+    rep = h // n_kv
+    rp = max(16, _pow2(rep))
+    bs = min(CONFIG["bs"], max(16, _pow2(s)))
+    n_tiles = pl.cdiv(s, bs)
+    want = max(1, min(n_tiles, pl.cdiv(CONFIG["target_blocks"], b * n_kv)))
+    tps = pl.cdiv(n_tiles, want)
+    n_split = pl.cdiv(n_tiles, tps)
+    quant = k_scale is not None
+    alibi = alibi_slopes is not None
+    operands = [jnp.asarray(layer_idx, jnp.int32).reshape(1), q, k, v,
+                bias.astype(jnp.float32)]
+    if quant:
+        operands += [k_scale.astype(jnp.float32), v_scale.astype(jnp.float32)]
+    if alibi:
+        operands.append(alibi_slopes.astype(jnp.float32))
+    acc, m, l = pl.pallas_call(
+        functools.partial(_kernel, quant=quant, alibi=alibi,
+                          sm_scale=sm_scale, rep=rep, rp=rp, bs=bs, tps=tps,
+                          s_len=s),
+        grid=(b, n_kv, n_split),
+        out_shape=[
+            jax.ShapeDtypeStruct((b, n_kv, n_split, rp, d), jnp.float32),
+            jax.ShapeDtypeStruct((b, n_kv, n_split, rp), jnp.float32),
+            jax.ShapeDtypeStruct((b, n_kv, n_split, rp), jnp.float32),
+        ],
+        compiler_params=plgpu.CompilerParams(
+            num_warps=CONFIG["num_warps"], num_stages=CONFIG["num_stages"]),
+        backend="triton",
+        interpret=interpret,
+        name="decode_attention",
+    )(*operands)
+    # merge the splits (flash-decoding's second pass)
+    m_all = jnp.max(m, axis=2, keepdims=True)
+    w = jnp.exp(m - m_all)
+    l_all = jnp.sum(l * w, axis=2)
+    out = jnp.sum(acc * w[..., None], axis=2)
+    out = out / jnp.where(l_all > 0.0, l_all, 1.0)[..., None]
+    return out[:, :, :rep].reshape(b, h, d).astype(q.dtype)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("sm_scale", "interpret", "int8_dots"))
+                   static_argnames=("sm_scale", "kernel", "interpret"))
 def decode_attention_stacked(
-    layer_idx: jax.Array,              # (1,) int32
+    layer_idx: jax.Array,              # () or (1,) int32
     q: jax.Array,                      # (B, H, D) — this layer's queries
     k: jax.Array,                      # (L, B, H_kv, S, D) — ALL layers
     v: jax.Array,
@@ -224,130 +190,30 @@ def decode_attention_stacked(
     k_scale: Optional[jax.Array] = None,   # (L, B, H_kv, S) when k is int8
     v_scale: Optional[jax.Array] = None,
     alibi_slopes: Optional[jax.Array] = None,  # (H,) f32 — per-head ALiBi;
-    #                                    score += slope_h * key_pos (Bloom;
-    #                                    requires H == H_kv)
+    #                                    score += slope_h * key_pos (Bloom)
     *,
     sm_scale: Optional[float] = None,
+    kernel: bool = False,
     interpret: bool = False,
-    int8_dots: bool = False,
 ) -> jax.Array:
-    """Layer-stacked twin of decode_attention for lax.scan decode: the full
-    stacked KV cache rides as a loop-invariant operand and scalar-prefetch
-    index maps stream only layer `layer_idx`'s tiles (a scan-xs cache would
-    be slice-copied AND fully written back every layer).
-
-    int8_dots (int8 caches only): run the QK^T and PV dots on the MXU's
-    int8 path with in-kernel q/prob requantization — the reference's
-    BMM_S8T_S8N_F32T / BMM_S8T_S8N_S8T semantics
-    (/root/reference/smoothquant/opt.py:44-45,79-84,189-190); False keeps
-    the dequantize-to-bf16 dots (einsum-parity numerics)."""
+    """Layer `layer_idx` of a stacked cache; returns (B, H, D) in q.dtype.
+    kernel=True runs the Triton kernel (interpret=True: in the Pallas
+    interpreter), kernel=False the plain XLA route."""
     b, h, d = q.shape
-    l_num, _, n_kv, s, _ = k.shape
-    rep = h // n_kv
-    ts = _pick_tile_s(s)
-    assert ts is not None, f"cache length {s} not tileable"
+    n_kv = k.shape[2]
+    assert h % n_kv == 0 and k.shape == v.shape and k.shape[1] == b
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-
-    rp = _ceil_to(rep, 8)
-    q4 = q.reshape(b, n_kv, rep, d)
-    if rp != rep:
-        q4 = jnp.pad(q4, ((0, 0), (0, 0), (0, rp - rep), (0, 0)))
-    hc = _pick_h_chunk(n_kv, ts, d, k.dtype.itemsize)
-    bc = _pick_b_chunk(b, n_kv, hc, ts, d, k.dtype.itemsize)
-
-    grid = (b // bc, n_kv // hc, s // ts)
-    q_spec = pl.BlockSpec((bc, hc, rp, d),
-                          lambda bb, hh, st, i: (bb, hh, 0, 0),
-                          memory_space=pltpu.VMEM)
-    kv_spec = pl.BlockSpec((1, bc, hc, ts, d),
-                           lambda bb, hh, st, i: (i[0], bb, hh, st, 0),
-                           memory_space=pltpu.VMEM)
-    bias4 = bias.reshape(b, s // ts, 1, ts)
-    bias_spec = pl.BlockSpec((bc, 1, 1, ts),
-                             lambda bb, hh, st, i: (bb, st, 0, 0),
-                             memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((bc, hc, rp, d),
-                            lambda bb, hh, st, i: (bb, hh, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    alibi = alibi_slopes is not None
-    if alibi:
-        assert rep == 1, "ALiBi slopes are per q-head (MHA only)"
-    if k_scale is not None:
-        # raw (L, B, H_kv, S) scales: the (hc, ts) block's last two dims are
-        # Mosaic-legal (hc is 8-divisible or the full H_kv axis), so no 6-D
-        # reshape is needed — a reshape here relayouts the ENTIRE stacked
-        # scale array inside every scan iteration (measured 35 us/layer)
-        assert hc % 8 == 0 or hc == n_kv
-        sc_spec = pl.BlockSpec(
-            (1, bc, hc, ts),
-            lambda bb, hh, st, i: (i[0], bb, hh, st),
-            memory_space=pltpu.VMEM)
-        kernel = functools.partial(_kernel_int8, sm_scale=sm_scale, hc=hc,
-                                   rp=rp, bc=bc, alibi=alibi,
-                                   int8_dots=int8_dots)
-        in_specs = [q_spec, kv_spec, kv_spec, bias_spec, sc_spec, sc_spec]
-        operands = [q4, k, v, bias4, k_scale, v_scale]
-    else:
-        kernel = functools.partial(_kernel_fp, sm_scale=sm_scale, hc=hc,
-                                   rp=rp, bc=bc, alibi=alibi)
-        in_specs = [q_spec, kv_spec, kv_spec, bias_spec]
-        operands = [q4, k, v, bias4]
-    if alibi:
-        sl = jnp.broadcast_to(
-            alibi_slopes.astype(jnp.float32).reshape(1, n_kv, 1),
-            (1, n_kv, 128))
-        in_specs.append(pl.BlockSpec(
-            (1, hc, 128), lambda bb, hh, st, i: (0, hh, 0),
-            memory_space=pltpu.VMEM))
-        operands.append(sl)
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_spec,
-            scratch_shapes=[
-                pltpu.VMEM((bc * hc * rp, 128), jnp.float32),  # running max
-                pltpu.VMEM((bc * hc * rp, 128), jnp.float32),  # denom
-                pltpu.VMEM((bc * hc * rp, d), jnp.float32),    # numerator
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, n_kv, rp, d), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b * h * s * d,
-            bytes_accessed=(2 * b * n_kv * s * d * k.dtype.itemsize
-                            + b * h * d * 2 * 2),
-            transcendentals=b * h * s,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(layer_idx, jnp.int32).reshape(1), *operands)
-
-    return out[:, :, :rep].reshape(b, h, d)
+    if kernel:
+        return _kernel_call(layer_idx, q, k, v, bias, k_scale, v_scale,
+                            alibi_slopes, sm_scale, interpret)
+    i = jnp.asarray(layer_idx, jnp.int32).reshape(())
+    pick = lambda a: (None if a is None else
+                      jax.lax.dynamic_index_in_dim(a, i, keepdims=False))
+    return _plain(q, pick(k), pick(v), bias, pick(k_scale), pick(v_scale),
+                  alibi_slopes, sm_scale)
 
 
-def _pick_tile_s(s: int) -> Optional[int]:
-    for ts in (512, 256, 128):
-        if s % ts == 0:
-            return ts
-    return None
-
-
-def supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
-    # head_dim 64 (OPT-125m/1.3b) is legal: the (TS, D) tile's last dim
-    # equals the full axis, which Mosaic accepts even below 128 lanes
-    return (_pick_tile_s(s) is not None and n_heads % n_kv == 0
-            and head_dim % 64 == 0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("sm_scale", "interpret", "int8_dots"))
 def decode_attention(
     q: jax.Array,                      # (B, H, D)
     k: jax.Array,                      # (B, H_kv, S, D) bf16/f32 or int8
@@ -358,21 +224,12 @@ def decode_attention(
     alibi_slopes: Optional[jax.Array] = None,  # (H,) f32 (Bloom)
     *,
     sm_scale: Optional[float] = None,
+    kernel: bool = False,
     interpret: bool = False,
-    int8_dots: bool = False,
 ) -> jax.Array:
-    """Returns (B, H, D) attention output in q.dtype.
-
-    Thin wrapper over the stacked kernel with a single-layer stack — one
-    code path for both the scan-decode and flat call sites."""
-    b, h, d = q.shape
-    _, n_kv, s, _ = k.shape
-    rep = h // n_kv
-    assert rep * n_kv == h and k.shape == v.shape == (b, n_kv, s, d)
+    """One layer's cache: the stacked attention over a one-layer stack."""
     return decode_attention_stacked(
         jnp.zeros((1,), jnp.int32), q, k[None], v[None], bias,
         None if k_scale is None else k_scale[None],
         None if v_scale is None else v_scale[None],
-        alibi_slopes,
-        sm_scale=sm_scale, interpret=interpret, int8_dots=int8_dots,
-    )
+        alibi_slopes, sm_scale=sm_scale, kernel=kernel, interpret=interpret)

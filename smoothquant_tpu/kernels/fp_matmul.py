@@ -1,104 +1,31 @@
-"""Layer-stacked bf16 matmul with scalar-prefetch — the UNQUANTIZED decode
-twin of int4_group_matmul_stacked.
+"""Layer-stacked floating-point matmul — the unquantized decode twin of
+int4_group_matmul_stacked (plain XLA).
 
-A bf16 model decoded under lax.scan pays a full weight-slice copy per layer
-if the stacked weights ride as scan xs (measured ~2x the HBM-bound layer
-cost at 7B).  This kernel keeps the whole (L, K, O) stack loop-invariant and
-streams only layer `layer_idx`'s tiles via scalar-prefetch index maps — the
-same no-copy structure the packed path uses, so the bf16 baseline in
-bench.py is an honest best-effort decode, and bf16 serving gets the same
-compile-once scan decode as packed models (models.llama.pack_fp_decode).
-
-The reference has no bf16 runtime of its own (it inherits HF's, SURVEY.md
-§1); this is the TPU-native equivalent surface.
+A bf16 model decoded under lax.scan keeps its whole (L, K, O) weight stack
+loop-invariant; layer `layer_idx` is read with a dynamic index that feeds
+the dot, the same no-slice-as-scan-xs structure the packed path uses, so
+the bf16 baseline in bench.py and bf16 serving get the same compile-once
+scan decode as packed models (models.llama.pack_fp_decode).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _kernel(idx_ref, x_ref, w_ref, out_ref, *, kt: int):
-    del idx_ref
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    out_ref[:] += jax.lax.dot_general(
-        x_ref[:], w_ref[0],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("out_dtype", "tile_o", "tile_k", "interpret"))
+@functools.partial(jax.jit, static_argnames=("out_dtype",))
 def fp_matmul_stacked(
-    layer_idx: jax.Array,   # (1,) int32 — which layer's weights to stream
+    layer_idx: jax.Array,   # () or (1,) int32 — which layer's weights to read
     x: jax.Array,           # (N, K) bf16/f32 activations
     w_t: jax.Array,         # (L, K, O) — ALL layers, transposed weights
     *,
     out_dtype=None,
-    tile_o: Optional[int] = None,
-    tile_k: Optional[int] = None,
-    interpret: bool = False,
 ) -> jax.Array:
-    n, kk = x.shape
-    l_num, k_w, o = w_t.shape
-    assert k_w == kk, (k_w, kk)
-    if tile_k is None:
-        tile_k = 512
-    while kk % tile_k:
-        tile_k //= 2
-    if tile_o is None:
-        tile_o = 2048 if o >= 8192 else 1024
-    while o % tile_o:
-        tile_o //= 2
-    if tile_k < 8 or tile_o < 128:
-        raise ValueError(f"shapes not tileable: K={kk} O={o}")
-
-    n_pad = _ceil_to(max(n, 8), 8)
-    if n_pad != n:
-        x = jnp.pad(x, ((0, n_pad - n), (0, 0)))
-
-    grid = (o // tile_o, kk // tile_k)
-    out = pl.pallas_call(
-        functools.partial(_kernel, kt=tile_k),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((n_pad, tile_k), lambda j, k, i: (0, k),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile_k, tile_o),
-                             lambda j, k, i: (i[0], k, j),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((n_pad, tile_o), lambda j, k, i: (0, j),
-                                   memory_space=pltpu.VMEM),
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_pad, o), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * kk * o,
-            bytes_accessed=kk * o * w_t.dtype.itemsize + n_pad * kk * 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(layer_idx, jnp.int32).reshape(1), x, w_t)
-
-    return out[:n].astype(out_dtype or x.dtype)
+    assert w_t.shape[1] == x.shape[1], (w_t.shape, x.shape)
+    i = jnp.asarray(layer_idx, jnp.int32).reshape(())
+    w = jax.lax.dynamic_index_in_dim(w_t, i, keepdims=False)
+    y = jnp.dot(x, w.astype(x.dtype), preferred_element_type=jnp.float32)
+    return y.astype(out_dtype or x.dtype)

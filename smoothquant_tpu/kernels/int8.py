@@ -1,10 +1,10 @@
-"""Static-scale INT8 GEMM kernels — TPU-native torch_int equivalents.
+"""Static-scale INT8 GEMMs — torch_int equivalents (plain XLA).
 
 The reference's only real-kernel path is Int8 OPT built on six external
-CUDA/CUTLASS kernels (smoothquant/opt.py:15-18; SURVEY.md §2.7).  These
-Pallas kernels provide the same semantics on the MXU's native int8×int8→int32
-path, with the requantization (static scales, computed by calibration)
-fused into the epilogue:
+CUDA/CUTLASS kernels (smoothquant/opt.py:15-18; SURVEY.md §2.7).  Here each
+is XLA's s8×s8→s32 `dot_general` (an int8 tensor-core GEMM on the GPU) with
+the requantization (static scales, computed by calibration) as an
+elementwise epilogue that XLA fuses onto the product:
 
   int8_linear(out=int8)            ≡ W8A8B8O8Linear
   int8_linear(out=f32)             ≡ W8A8BFP32OFP32Linear
@@ -24,12 +24,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _requant(acc_f32, out_dtype):
@@ -38,33 +32,7 @@ def _requant(acc_f32, out_dtype):
     return acc_f32.astype(out_dtype)
 
 
-def _linear_kernel(x_ref, w_ref, alpha_ref, bias_ref, out_ref, acc_ref, *,
-                   relu: bool, out_dtype, n_k: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jax.lax.dot_general(
-        x_ref[:], w_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        y = acc_ref[:].astype(jnp.float32) * alpha_ref[0, 0]
-        y = y + bias_ref[:].astype(jnp.float32)
-        if relu:
-            y = jnp.maximum(y, 0.0)
-        out_ref[:] = _requant(y, out_dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("relu", "out_dtype", "tile_n", "tile_o", "tile_k", "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("relu", "out_dtype"))
 def int8_linear(
     x: jax.Array,             # (N, K) int8
     w: jax.Array,             # (O, K) int8
@@ -73,111 +41,32 @@ def int8_linear(
     *,
     relu: bool = False,
     out_dtype=jnp.float32,
-    tile_n: int = 256,
-    tile_o: int = 256,
-    tile_k: int = 512,
-    interpret: bool = False,
 ) -> jax.Array:
-    n, kk = x.shape
-    o = w.shape[0]
-    assert w.shape[1] == kk
-    if bias is None:
-        bias = jnp.zeros((o,), jnp.float32)
-
-    tile_n = min(tile_n, _ceil_to(n, 32))
-    tile_o = min(tile_o, _ceil_to(o, 128))
-    tile_k = min(tile_k, _ceil_to(kk, 128))
-
-    n_pad, o_pad, k_pad = _ceil_to(n, tile_n), _ceil_to(o, tile_o), _ceil_to(kk, tile_k)
-    if n_pad != n:
-        x = jnp.pad(x, ((0, n_pad - n), (0, 0)))
-    if k_pad != kk:
-        x = jnp.pad(x, ((0, 0), (0, k_pad - kk)))
-        w = jnp.pad(w, ((0, 0), (0, k_pad - kk)))
-    if o_pad != o:
-        w = jnp.pad(w, ((0, o_pad - o), (0, 0)))
-        bias = jnp.pad(bias, (0, o_pad - o))
-
-    grid = (n_pad // tile_n, o_pad // tile_o, k_pad // tile_k)
-    alpha2d = jnp.asarray(alpha, jnp.float32).reshape(1, 1)
-    bias2d = bias.reshape(1, o_pad).astype(jnp.float32)
-
-    out = pl.pallas_call(
-        functools.partial(_linear_kernel, relu=relu, out_dtype=out_dtype,
-                          n_k=grid[2]),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile_n, tile_k), lambda i, j, k: (i, k),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_o, tile_k), lambda i, j, k: (j, k),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i, j, k: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, tile_o), lambda i, j, k: (0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_n, tile_o), lambda i, j, k: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, o_pad), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tile_n, tile_o), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * o_pad * k_pad,
-            bytes_accessed=n_pad * k_pad + o_pad * k_pad + n_pad * o_pad * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x, w, alpha2d, bias2d)
-    return out[:n, :o]
-
-
-def _bmm_kernel(a_ref, b_ref, alpha_ref, out_ref, *, out_dtype):
+    assert w.shape[1] == x.shape[1]
     acc = jax.lax.dot_general(
-        a_ref[0], b_ref[0],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    out_ref[0] = _requant(acc.astype(jnp.float32) * alpha_ref[0, 0], out_dtype)
+        x, w, dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32)
+    y = acc.astype(jnp.float32) * jnp.asarray(alpha, jnp.float32)
+    if bias is not None:
+        y = y + bias.astype(jnp.float32)
+    if relu:
+        y = jnp.maximum(y, 0.0)
+    return _requant(y, out_dtype)
 
 
-@functools.partial(jax.jit, static_argnames=("out_dtype", "interpret"))
+@functools.partial(jax.jit, static_argnames=("out_dtype",))
 def int8_bmm(
     a: jax.Array,      # (B, M, K) int8
     b: jax.Array,      # (B, N, K) int8  (contracted on K: a @ b^T)
     alpha: jax.Array,  # scalar f32
     *,
     out_dtype=jnp.float32,
-    interpret: bool = False,
 ) -> jax.Array:
-    bb, m, kk = a.shape
-    n = b.shape[1]
-    m_pad, n_pad, k_pad = _ceil_to(m, 32), _ceil_to(n, 32), _ceil_to(kk, 128)
-    if (m_pad, k_pad) != (m, kk):
-        a = jnp.pad(a, ((0, 0), (0, m_pad - m), (0, k_pad - kk)))
-    if (n_pad, k_pad) != (n, kk):
-        b = jnp.pad(b, ((0, 0), (0, n_pad - n), (0, k_pad - kk)))
-    alpha2d = jnp.asarray(alpha, jnp.float32).reshape(1, 1)
-
-    out = pl.pallas_call(
-        functools.partial(_bmm_kernel, out_dtype=out_dtype),
-        grid=(bb,),
-        in_specs=[
-            pl.BlockSpec((1, m_pad, k_pad), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n_pad, k_pad), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((1, m_pad, n_pad), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((bb, m_pad, n_pad), out_dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=interpret,
-    )(a, b, alpha2d)
-    return out[:, :m, :n]
+    acc = jax.lax.dot_general(
+        a, b, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
+        preferred_element_type=jnp.int32)
+    return _requant(acc.astype(jnp.float32) * jnp.asarray(alpha, jnp.float32),
+                    out_dtype)
 
 
 def quantize_to_int8(x: jax.Array, scale: jax.Array) -> jax.Array:

@@ -1,21 +1,14 @@
-"""Integer-compute group matmul — the decode-path speed-of-light kernel.
+"""Integer-compute group matmul for int8-container weights (plain XLA).
 
-The v1 dual-path kernel dequantizes the weight tile in VMEM (VPU work
-proportional to K×O), which caps it at ~300 GB/s effective weight bandwidth
-at decode shapes.  This kernel never materializes dequantized weights:
+    out[n, o] = Σ_g s_x[n, g] · s_w[g, o] · Σ_{c∈g} x_int[n, c] · w_int[c, o]
+                + x_sal @ w_sal
 
-    out[n, o] = s_x[n, g] · s_w[g, o] · Σ_{c∈g} x_int[n, c] · w_int[c, o]
-
-Per group, the int8×int8 product runs on the MXU's native int path
-(int32 accumulation) and the two scales are applied to the small (N, O)
-partial — scaling work is N×O×G, independent of K.  This factorization is
-exactly the Q-DQ float semantics of the simulation (per-token or per-group
-activation scales × per-(row, group) weight scales), so accuracy is
-unchanged up to f32 rounding order.
-
-Layout: the group axis is the leading (batch) axis of 3-D operands so that
-every block's last two dims stay Mosaic-legal:
-  x3 (G, N, gs), w3 (G, gs, O), x_scales_t (G, N), w_scales_t (G, O).
+Per group, the s8×s8 product accumulates in int32 (one batched
+`dot_general` over the groups) and the two scales are applied to the
+(G, N, O) partials — exactly the Q-DQ float semantics of the simulation
+(per-token or per-group activation scales × per-(row, group) weight
+scales), up to f32 rounding order.  Off the serving hot path: the decode
+path stores weights nibble-packed (kernels/int4_group_matmul.py).
 """
 
 from __future__ import annotations
@@ -24,154 +17,36 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _accum_groups(x3_ref, xs_ref, w3_ref, ws_ref, out_ref, gpt: int):
-    # static Python loop over the tile's groups (gpt is compile-time)
-    for gg in range(gpt):
-        partial = jax.lax.dot_general(
-            x3_ref[gg], w3_ref[gg],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)                     # (TN, TO)
-        sx = xs_ref[gg][:, None]                   # (TN, 1)
-        sw = ws_ref[gg][None, :].astype(jnp.float32)  # (1, TO)
-        out_ref[:] += partial * sx * sw
-
-
-def _kernel(x3_ref, xs_ref, w3_ref, ws_ref, x_sal_ref, w_sal_t_ref,
-            out_ref, *, gpt: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[:] = jax.lax.dot_general(
-            x_sal_ref[:], w_sal_t_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    _accum_groups(x3_ref, xs_ref, w3_ref, ws_ref, out_ref, gpt)
-
-
-def _kernel_nosal(x3_ref, xs_ref, w3_ref, ws_ref, out_ref, *, gpt: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    _accum_groups(x3_ref, xs_ref, w3_ref, ws_ref, out_ref, gpt)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("group_size", "out_dtype", "tile_n", "tile_o", "tile_g",
-                     "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("group_size", "out_dtype"))
 def int_group_matmul(
     x_q: jax.Array,        # (N, K) int8 — integer-quantized activations
     x_scales: jax.Array,   # (N, G) f32 — per-(token, group) act scales
     w_qt: jax.Array,       # (K, O) int8
-    w_scales_t: jax.Array, # (G, O) f32
+    w_scales_t: jax.Array,  # (G, O) f32
     x_sal: jax.Array,      # (N, K_s) bf16/f32 salient slice (fp path)
     w_sal_t: jax.Array,    # (K_s, O) bf16/f32
     *,
     group_size: int,
     out_dtype=jnp.float32,
-    tile_n: int = 128,
-    tile_o: int = 512,
-    tile_g: int = 8,
-    interpret: bool = False,
 ) -> jax.Array:
     n, kk = x_q.shape
     o = w_qt.shape[1]
-    k_s = x_sal.shape[1]
-    g_total = kk // group_size
+    g = kk // group_size
     assert kk % group_size == 0
-    assert x_scales.shape == (n, g_total)
-    assert w_scales_t.shape == (g_total, o)
-
-    # pad N to a lane-legal tile (full-N block or multiple of 128)
-    if n <= 128:
-        tile_n = _ceil_to(max(n, 8), 8)
-    else:
-        tile_n = 128
-    n_pad = _ceil_to(n, tile_n)
-    o_pad = _ceil_to(o, min(tile_o, _ceil_to(o, 128)))
-    tile_o = min(tile_o, o_pad)
-    # pad groups to a multiple of tile_g
-    tile_g = min(tile_g, g_total)
-    g_pad = _ceil_to(g_total, tile_g)
-
-    if n_pad != n:
-        x_q = jnp.pad(x_q, ((0, n_pad - n), (0, 0)))
-        x_scales = jnp.pad(x_scales, ((0, n_pad - n), (0, 0)))
-        x_sal = jnp.pad(x_sal, ((0, n_pad - n), (0, 0)))
-    if g_pad != g_total:
-        x_q = jnp.pad(x_q, ((0, 0), (0, (g_pad - g_total) * group_size)))
-        x_scales = jnp.pad(x_scales, ((0, 0), (0, g_pad - g_total)))
-        w_qt = jnp.pad(w_qt, ((0, (g_pad - g_total) * group_size), (0, 0)))
-        w_scales_t = jnp.pad(w_scales_t, ((0, g_pad - g_total), (0, 0)))
-    if o_pad != o:
-        w_qt = jnp.pad(w_qt, ((0, 0), (0, o_pad - o)))
-        w_scales_t = jnp.pad(w_scales_t, ((0, 0), (0, o_pad - o)))
-        w_sal_t = jnp.pad(w_sal_t, ((0, 0), (0, o_pad - o)))
-
-    # group-major 3-D layouts (XLA-side reshapes/transposes, outside kernel)
-    x3 = x_q.reshape(n_pad, g_pad, group_size).transpose(1, 0, 2)  # (G, N, gs)
-    w3 = w_qt.reshape(g_pad, group_size, o_pad)                    # (G, gs, O)
-    xs_t = x_scales.T                                              # (G, N)
-
-    grid = (n_pad // tile_n, o_pad // tile_o, g_pad // tile_g)
-
-    in_specs = [
-        pl.BlockSpec((tile_g, tile_n, group_size), lambda i, j, k: (k, i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((tile_g, tile_n), lambda i, j, k: (k, i),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((tile_g, group_size, tile_o), lambda i, j, k: (k, 0, j),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((tile_g, tile_o), lambda i, j, k: (k, j),
-                     memory_space=pltpu.VMEM),
-    ]
-    operands = [x3, xs_t, w3, w_scales_t]
-    if k_s:  # salient dual path present
-        kernel = functools.partial(_kernel, gpt=tile_g)
-        in_specs += [
-            pl.BlockSpec((tile_n, k_s), lambda i, j, k: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k_s, tile_o), lambda i, j, k: (0, j),
-                         memory_space=pltpu.VMEM),
-        ]
-        operands += [x_sal, w_sal_t]
-    else:
-        kernel = functools.partial(_kernel_nosal, gpt=tile_g)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((tile_n, tile_o), lambda i, j, k: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, o_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * o_pad * (g_pad * group_size + k_s),
-            bytes_accessed=(n_pad * g_pad * group_size + o_pad * g_pad * group_size
-                            + (n_pad + o_pad) * g_pad * 4
-                            + (n_pad + o_pad) * k_s * 2 + n_pad * o_pad * 4),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-
-    return out[:n, :o].astype(out_dtype)
+    assert x_scales.shape == (n, g)
+    assert w_scales_t.shape == (g, o)
+    acc = jax.lax.dot_general(
+        x_q.reshape(n, g, group_size), w_qt.reshape(g, group_size, o),
+        dimension_numbers=(((2,), (1,)), ((1,), (0,))),
+        preferred_element_type=jnp.int32)                      # (G, N, O)
+    y = jnp.sum(acc.astype(jnp.float32)
+                * x_scales.T.astype(jnp.float32)[:, :, None]
+                * w_scales_t.astype(jnp.float32)[:, None, :], axis=0)
+    if x_sal.shape[1]:
+        y = y + jax.lax.dot_general(
+            x_sal, w_sal_t.astype(x_sal.dtype),
+            dimension_numbers=(((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)
+    return y.astype(out_dtype)

@@ -1,13 +1,11 @@
-"""Fused normalization + quantization kernels (LayerNormQ equivalents).
+"""Normalization + quantization (LayerNormQ equivalents, plain XLA).
 
 The reference's real-INT8 path uses torch_int's LayerNormQ: LayerNorm whose
 output is emitted directly as int8 with a static calibrated scale
-(opt.py:16,220,239-252).  Here the same fusion is a Pallas kernel, plus the
-RMSNorm variant for the Llama family (which the reference never had — its
-Llama path was simulation-only).
-
-One HBM read of x, one int8 write — the norm, scale division, rounding and
-saturation all happen in VMEM.
+(opt.py:16,220,239-252).  Here the norm, scale division, rounding and
+saturation are one chain of elementwise ops and row reductions that XLA
+fuses into a single pass over x; the RMSNorm variant serves the Llama
+family (which the reference never had — its Llama path was simulation-only).
 """
 
 from __future__ import annotations
@@ -16,31 +14,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _norm_quant_kernel(x_ref, gamma_ref, beta_ref, scale_ref, out_ref, *,
-                       eps: float, rms: bool):
-    x = x_ref[:].astype(jnp.float32)
-    if rms:
-        y = x * jax.lax.rsqrt(jnp.mean(x * x, axis=-1, keepdims=True) + eps)
-    else:
-        mean = jnp.mean(x, axis=-1, keepdims=True)
-        var = jnp.var(x, axis=-1, keepdims=True)
-        y = (x - mean) * jax.lax.rsqrt(var + eps)
-    y = y * gamma_ref[:].astype(jnp.float32) + beta_ref[:].astype(jnp.float32)
-    inv = 1.0 / scale_ref[0, 0]
-    out_ref[:] = jnp.clip(jnp.round(y * inv), -127, 127).astype(jnp.int8)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("eps", "rms", "tile_n", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("eps", "rms"))
 def norm_quant(
     x: jax.Array,        # (N, C)
     gamma: jax.Array,    # (C,)
@@ -49,39 +25,25 @@ def norm_quant(
     *,
     eps: float = 1e-5,
     rms: bool = False,
-    tile_n: int = 512,
-    interpret: bool = False,
 ) -> jax.Array:
-    n, c = x.shape
-    tile_n = min(tile_n, _ceil_to(n, 8))
-    n_pad = _ceil_to(n, tile_n)
-    if n_pad != n:
-        x = jnp.pad(x, ((0, n_pad - n), (0, 0)))
-
-    out = pl.pallas_call(
-        functools.partial(_norm_quant_kernel, eps=eps, rms=rms),
-        grid=(n_pad // tile_n,),
-        in_specs=[
-            pl.BlockSpec((tile_n, c), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, c), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, c), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_n, c), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, c), jnp.int8),
-        interpret=interpret,
-    )(x, gamma.reshape(1, c), beta.reshape(1, c),
-      jnp.asarray(scale, jnp.float32).reshape(1, 1))
-    return out[:n]
+    xf = x.astype(jnp.float32)
+    if rms:
+        y = xf * jax.lax.rsqrt(jnp.mean(xf * xf, axis=-1, keepdims=True) + eps)
+    else:
+        mean = jnp.mean(xf, axis=-1, keepdims=True)
+        var = jnp.var(xf, axis=-1, keepdims=True)
+        y = (xf - mean) * jax.lax.rsqrt(var + eps)
+    y = y * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
+    inv = 1.0 / jnp.asarray(scale, jnp.float32)
+    return jnp.clip(jnp.round(y * inv), -127, 127).astype(jnp.int8)
 
 
-def layer_norm_q(x, gamma, beta, scale, eps=1e-5, interpret=False):
+def layer_norm_q(x, gamma, beta, scale, eps=1e-5):
     """torch_int LayerNormQ equivalent (opt.py:239-252)."""
-    return norm_quant(x, gamma, beta, scale, eps=eps, rms=False, interpret=interpret)
+    return norm_quant(x, gamma, beta, scale, eps=eps, rms=False)
 
 
-def rms_norm_q(x, gamma, scale, eps=1e-6, interpret=False):
+def rms_norm_q(x, gamma, scale, eps=1e-6):
     """RMSNorm → int8 with static scale (Llama-family real path)."""
-    beta = jnp.zeros_like(gamma)
-    return norm_quant(x, gamma, beta, scale, eps=eps, rms=True, interpret=interpret)
+    return norm_quant(x, gamma, jnp.zeros_like(gamma), scale, eps=eps,
+                      rms=True)

@@ -1,7 +1,7 @@
 """Load-time weight packing for the real quantized execution path.
 
 Turns an FP linear weight + quantization recipe + calibration stats into the
-static TPU layout consumed by kernels.quant_matmul.dual_path_matmul:
+static layout consumed by kernels/real_linear.py:
 
   * a single static channel permutation [non-salient (magnitude-sorted) |
     salient], replacing the reference's two dynamic mechanisms — boolean-mask
@@ -12,7 +12,7 @@ static TPU layout consumed by kernels.quant_matmul.dual_path_matmul:
     smoothing, weight-group quality), else the weight's column absmax (the
     reference's weight-side key, fake_quant.py:162-167).
   * int4-range weight values in an int8 container, stored TRANSPOSED
-    (K_ns, O) — the MXU B-operand layout the kernel wants — with per-group
+    (K_ns, O) — the GEMM B-operand layout — with per-group
     f32 scales (K_ns/group_size, O), zero-padded to whole groups,
   * the salient columns as a dense bf16 block (K_s_pad, O), lane-padded.
 
@@ -55,11 +55,6 @@ class PackedLinear:
     # identity nibble layout only: (C,) 0/1 mask zeroing the scattered
     # salient channels out of the int path's activation quantize
     ns_mask: Optional[jax.Array] = None
-    # identity nibble layout, stacked decode trees only: (L, C, k_s) 0/1
-    # selection matrix — the rawx kernel computes the salient activation
-    # slice as ONE MXU dot (x @ S, exact: one term per output) instead of
-    # the ~7 us/layer XLA gather chain (block_decode_tree builds it)
-    sal_select: Optional[jax.Array] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,9 +121,8 @@ def pack_linear(
 
     align_k_groups / align_o: round the packed K-groups (per nibble half)
     and the output axis up to these multiples with zero padding (zero group
-    scales nullify padded contributions).  The layer-stacked lax.scan path
-    requires kernel-tile-aligned shapes so the scalar-prefetch kernels never
-    pad (padding a stacked weight in-jit would copy it every step).
+    scales nullify padded contributions).  No route requires it: the int4
+    kernel masks ragged K-groups and output columns itself.
 
     Default path: only the permutation/salient selection runs on host (tiny
     vectors); the heavy permute/pad/quantize work is jitted on device —
@@ -462,9 +456,8 @@ def unpack_nibbles_to_int8(w_qt: jax.Array) -> jax.Array:
     return jnp.concatenate([lo, hi], axis=0)
 
 
-@functools.partial(jax.jit, static_argnames=("group_size", "k_ns_raw", "c"))
-def _promote_device(w_qt, w_scales_t, perm, *, group_size: int,
-                    k_ns_raw: int, c: int):
+@functools.partial(jax.jit, static_argnames=("group_size", "c"))
+def _promote_device(w_qt, w_scales_t, dest, *, group_size: int, c: int):
     k_ns = w_qt.shape[0]
     g_total = k_ns // group_size
     wf = (w_qt.astype(jnp.float32).reshape(g_total, group_size, -1)
@@ -472,23 +465,24 @@ def _promote_device(w_qt, w_scales_t, perm, *, group_size: int,
     absmax = jnp.max(jnp.abs(wf), axis=0, keepdims=True)      # (1, O)
     scale = jnp.maximum(absmax, 1e-8) / 127.0
     q8 = jnp.round(wf / scale).astype(jnp.int8)
-    # scatter rows back to ORIGINAL channel order; salient and pad rows
-    # drop out (zero rows — their channels ride the fp side path / nothing)
-    q8_orig = jnp.zeros((c, q8.shape[1]), jnp.int8)
-    q8_orig = q8_orig.at[perm[:k_ns_raw]].set(q8[:k_ns_raw])
-    return q8_orig, scale
+    # scatter packed rows to their INPUT channel (dest); salient and pad
+    # rows drop out (zero rows — their channels ride the fp side path)
+    q8_in = jnp.zeros((c, q8.shape[1]), jnp.int8)
+    q8_in = q8_in.at[dest].set(q8[: dest.shape[0]])
+    return q8_in, scale
 
 
 def promote_int8(packed: PackedLinear) -> PackedLinear:
-    """Re-express an int4-group PackedLinear as int8 per-output-column in
-    ORIGINAL channel order — the prefill-speed recipe (VERDICT r1 #3).
+    """Re-express an int4-group PackedLinear as int8 per-output-column with
+    rows in the order its INPUT arrives (original channel order, or packed
+    order for a pre_permuted pack) — the prefill-speed recipe.
 
     A single full-depth int8 contraction with per-token x per-column output
-    scaling rides the int8 MXU's 2x-over-bf16 peak with no per-group VPU
-    work, and the identity layout needs NO per-call activation gather (the
-    measured gather+overhead cost half the win): salient channels are
-    simply masked out of the int operand (their rows are zero) and ride the
-    fp side path via a small column gather.
+    scaling runs at the tensor cores' int8 rate (2x bf16) with no per-group
+    epilogue work, and the identity layout needs NO per-call activation
+    gather: salient channels are simply masked out of the int operand
+    (their rows are zero) and ride the fp side path via a small column
+    gather.
 
     Numerically this requantizes the already-Q-DQ'd W4 weight at 8-bit
     per-column granularity: added error <= column absmax / 254 — at most
@@ -500,22 +494,32 @@ def promote_int8(packed: PackedLinear) -> PackedLinear:
     if packed.meta.nibble:
         w_qt = unpack_nibbles_to_int8(w_qt)
     m = packed.meta
-    k_ns_raw = m.in_features - m.num_salient
-    q8, scale = _promote_device(w_qt, packed.w_scales_t, packed.perm,
-                                group_size=m.group_size, k_ns_raw=k_ns_raw,
-                                c=m.in_features)
+    c = m.in_features
+    k_ns_raw = c - m.num_salient
+    perm = packed.perm
+    if m.layout == "identity":
+        # rows already in input order (salient rows zeroed)
+        dest = jnp.arange(c)
+    elif m.pre_permuted:
+        # the input arrives in packed order: row i IS input channel i, and
+        # the salient channels are the input's tail
+        dest = jnp.arange(k_ns_raw)
+        perm = jnp.arange(c, dtype=jnp.int32)
+    else:
+        dest = perm[:k_ns_raw]
+    q8, scale = _promote_device(w_qt, packed.w_scales_t, dest,
+                                group_size=m.group_size, c=c)
     ns_mask = None
     if m.num_salient:
         # pack-time non-salient mask: saves the per-call scatter in the
         # prefill prologue (real_linear._identity_int8_forward)
-        ns_mask = jnp.ones((m.in_features,), jnp.float32).at[
-            packed.perm[k_ns_raw:]].set(0.0)
+        ns_mask = jnp.ones((c,), jnp.float32).at[perm[k_ns_raw:]].set(0.0)
     return PackedLinear(
         w_qt=q8,
         w_scales_t=scale,
         w_sal_t=packed.w_sal_t,
         bias=packed.bias,
-        perm=packed.perm,
+        perm=perm,
         ns_mask=ns_mask,
         meta=dataclasses.replace(
             m, nibble=False, group_size=m.in_features, k_ns=m.in_features,
@@ -705,54 +709,3 @@ def quantize_activations_packed_int(
     if meta.num_salient:
         x_sal = x_sal.at[:, : meta.num_salient].set(x_perm[:, k_ns_raw:])
     return x_q, x_scales.astype(jnp.float32), x_sal
-
-
-def block_decode_tree(tree):
-    """Re-store every stacked nibble PackedLinear in the BLOCK-CONTIGUOUS
-    weight layout (kernels.int4_group_matmul.block_rawx_weights).
-
-    Apply AFTER stack_layers on a decode tree: each rawx weight DMA becomes
-    one contiguous 2 MB read instead of ~1024 strided rows (measured +12%
-    effective HBM bandwidth at 32-layer depth, scripts/dma_layout_probe.py).
-    Blocked trees serve the ≤32-token rawx decode path only — prefill goes
-    through the promoted-int8 twin (promote_model_int8), which is the
-    serving configuration anyway.  Leaves whose recipe or alignment the
-    rawx kernel wouldn't take are left untouched.
-    """
-    import dataclasses as _dc
-
-    from smoothquant_tpu.kernels.int4_group_matmul import block_rawx_weights
-
-    def walk(node):
-        if isinstance(node, PackedLinear):
-            m = node.meta
-            grouped = (m.act_quant not in ("per_token", "per_tensor")
-                       and m.act_group_size == m.group_size)
-            if not (m.nibble and grouped and node.w_qt.ndim == 3):
-                return node
-            try:
-                wp, ws, sal = block_rawx_weights(
-                    node.w_qt, node.w_scales_t, node.w_sal_t, m.group_size)
-            except ValueError:
-                return node
-            node = _dc.replace(node, w_qt=wp, w_scales_t=ws, w_sal_t=sal)
-            if (getattr(m, "layout", None) == "identity" and m.num_salient
-                    and node.sal_select is None):
-                # (L, C, k_s) one-hot selection: x2d @ S == the salient
-                # gather, bit-exactly (one term per output column)
-                perm = np.asarray(node.perm)          # (L, C)
-                l_num, c = perm.shape
-                # NB: read the dtype from the array OBJECT — np.asarray of
-                # the stacked salient weights would fetch tens of MB from
-                # the device just to inspect .dtype
-                sel = np.zeros((l_num, c, m.k_s), np.dtype(node.w_sal_t.dtype))
-                for li in range(l_num):
-                    sal_idx = perm[li, m.in_features - m.num_salient:]
-                    sel[li, sal_idx, np.arange(m.num_salient)] = 1
-                node = _dc.replace(node, sal_select=jnp.asarray(sel))
-            return node
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return node
-
-    return walk(tree)

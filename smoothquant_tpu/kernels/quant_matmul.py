@@ -1,34 +1,13 @@
-"""Fused dual-path quantized matmul — the framework's hot kernel.
-
-The reference only *simulates* W4A4: it Q-DQs weights offline into FP16 and
-runs a plain FP16 GEMM (fake_quant.py:306).  Here the weight truly lives in
-HBM as int4-range values (int8 container in v1) with per-(row, group)
-scales, and the salient columns as a small dense bf16 block.  One Pallas
-kernel computes
+"""Dual-path quantized matmul, dequantize route (plain XLA).
 
     y = x_sal @ w_sal + x_ns @ (w_q * scales)
 
-with the dequantization happening in VMEM right before the MXU — so HBM
-traffic for the weight is ~4-8 bits/element instead of 16, which is the
-whole performance point (HBM bandwidth is the bottleneck; SURVEY.md §2.7
-north star: the torch_int CUDA kernels' TPU-native replacement).
-
-Mosaic-friendly design notes:
-  * weights are stored TRANSPOSED, (K, O) — the natural B-operand layout —
-    so the contraction axis is the sublane axis and no in-kernel transposes
-    of large tiles are needed;
-  * per-group scales (G, O) are expanded to per-channel (TK, O) inside the
-    kernel by a tiny constant 0/1 group-selector matmul (iota compare),
-    because lane-splitting reshapes like (TK,)→(G, group_size) don't lower;
-  * K-tiles hold whole groups and groups-per-tile is 8-divisible (or the
-    tile covers all of K), keeping every block shape legal.
-
-Layout contract (produced by pack.pack_linear): channels are permuted
-salient-first at load time, then non-salient channels sorted by calibrated
-magnitude — the static replacement for the reference's dynamic boolean-mask
-compaction (fake_quant.py:291-304) and per-call argsort grouping
-(fake_quant.py:104-154); SURVEY.md §7 "hard parts".  x_ns arrives already
-activation-quantized (Q-DQ'd, cheap XLA-fused elementwise work).
+The weight lives in device memory as int4-range values in an int8 container
+with per-(row, group) scales, and the salient columns as a small dense
+block.  The dequantized weight is formed in the compute dtype and contracted
+with f32 accumulation.  This is the `compute="dequant"` route of
+real_quant_linear, for recipes whose activations the integer route cannot
+take (act_bits > 8, or activation groups that do not match weight groups).
 """
 
 from __future__ import annotations
@@ -37,224 +16,30 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _accum_dequant(x_ns_ref, w_qt_ref, scales_t_ref, out_ref, group_size: int):
-    tk, to = w_qt_ref.shape
-    gpt = tk // group_size  # groups in this K tile
-
-    # Expand per-group scales (gpt, TO) to per-channel (TK, TO) with a
-    # constant group-selector matmul: sel[c, g] = 1 iff c // group_size == g.
-    chan = jax.lax.broadcasted_iota(jnp.int32, (tk, gpt), 0) // group_size
-    grp = jax.lax.broadcasted_iota(jnp.int32, (tk, gpt), 1)
-    sel = (chan == grp).astype(jnp.float32)
-    scales_tk = jax.lax.dot_general(
-        sel, scales_t_ref[:].astype(jnp.float32),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (TK, TO)
-
-    w_deq = (w_qt_ref[:].astype(jnp.float32) * scales_tk).astype(x_ns_ref.dtype)
-    out_ref[:] += jax.lax.dot_general(
-        x_ns_ref[:], w_deq,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _kernel(x_ns_ref, x_sal_ref, w_qt_ref, scales_t_ref, w_sal_t_ref,
-            out_ref, *, group_size: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _init():
-        # salient dual path: small dense block, fp precision
-        out_ref[:] = jax.lax.dot_general(
-            x_sal_ref[:], w_sal_t_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    _accum_dequant(x_ns_ref, w_qt_ref, scales_t_ref, out_ref, group_size)
-
-
-def _kernel_nosal(x_ns_ref, w_qt_ref, scales_t_ref, out_ref, *,
-                  group_size: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _init():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    _accum_dequant(x_ns_ref, w_qt_ref, scales_t_ref, out_ref, group_size)
-
-
-def _kernel_colscale(x_ns_ref, x_sal_ref, w_qt_ref, scales_t_ref, w_sal_t_ref,
-                     out_ref, acc_ref, *, n_k: int):
-    """Single-group (per-output-channel scale) path: accumulate the raw
-    integer matmul and apply the column scale once at the end — no (TK, TO)
-    dequant intermediate, so per-channel recipes (group == whole row) stay
-    within VMEM at any K."""
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    # int values up to ±127 are exact in bf16, so the cast loses nothing
-    acc_ref[:] += jax.lax.dot_general(
-        x_ns_ref[:], w_qt_ref[:].astype(x_ns_ref.dtype),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        sal = jax.lax.dot_general(
-            x_sal_ref[:], w_sal_t_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        out_ref[:] = acc_ref[:] * scales_t_ref[:].astype(jnp.float32) + sal
-
-
-def _kernel_colscale_nosal(x_ns_ref, w_qt_ref, scales_t_ref, out_ref, acc_ref,
-                           *, n_k: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jax.lax.dot_general(
-        x_ns_ref[:], w_qt_ref[:].astype(x_ns_ref.dtype),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        out_ref[:] = acc_ref[:] * scales_t_ref[:].astype(jnp.float32)
-
-
-def _pick_tile_k(k_ns: int, group_size: int, want: int) -> int:
-    """K-tile with 8-divisible groups-per-tile; caller pads K up to it."""
-    step = 8 * group_size
-    if k_ns <= step:
-        return k_ns
-    return min(max(step, (want // step) * step), _ceil_to(k_ns, step))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("group_size", "out_dtype", "tile_n", "tile_o", "tile_k",
-                     "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("group_size", "out_dtype"))
 def dual_path_matmul(
     x_ns: jax.Array,       # (N, K_ns) bf16/f32, already act-quantized (Q-DQ)
     x_sal: jax.Array,      # (N, K_s)  bf16/f32, full-precision salient slice
     w_qt: jax.Array,       # (K_ns, O) int8 (int4-range values), transposed
-    w_scales_t: jax.Array, # (K_ns // group_size, O) f32
+    w_scales_t: jax.Array,  # (K_ns // group_size, O) f32
     w_sal_t: jax.Array,    # (K_s, O)  bf16/f32, transposed
     *,
     group_size: int,
     out_dtype=jnp.float32,
-    tile_n: int = 256,
-    tile_o: int = 512,
-    tile_k: int = 1024,
-    interpret: bool = False,
 ) -> jax.Array:
-    n, k_ns = x_ns.shape
-    o = w_qt.shape[1]
+    k_ns, o = w_qt.shape
     k_s = x_sal.shape[1]
-    assert w_qt.shape == (k_ns, o) and w_sal_t.shape == (k_s, o)
+    assert w_sal_t.shape == (k_s, o)
     assert k_ns % group_size == 0
-    assert w_scales_t.shape == (k_ns // group_size, o)
-
-    tile_n = min(tile_n, _ceil_to(n, 8))
-    tile_o = min(tile_o, _ceil_to(o, 128))
-    single_group = w_scales_t.shape[0] == 1  # per-channel/per-tensor recipe
-    if single_group:
-        tile_k = min(tile_k, _ceil_to(k_ns, 128))
-    else:
-        tile_k = _pick_tile_k(k_ns, group_size, min(tile_k, k_ns))
-
-    n_pad = _ceil_to(n, tile_n)
-    o_pad = _ceil_to(o, tile_o)
-    k_pad = _ceil_to(k_ns, tile_k)
-    if n_pad != n:
-        x_ns = jnp.pad(x_ns, ((0, n_pad - n), (0, 0)))
-        x_sal = jnp.pad(x_sal, ((0, n_pad - n), (0, 0)))
-    if k_pad != k_ns:
-        # zero channels contribute nothing; scale rows padded with zeros
-        x_ns = jnp.pad(x_ns, ((0, 0), (0, k_pad - k_ns)))
-        w_qt = jnp.pad(w_qt, ((0, k_pad - k_ns), (0, 0)))
-        if not single_group:
-            extra = k_pad // group_size - w_scales_t.shape[0]
-            w_scales_t = jnp.pad(w_scales_t, ((0, extra), (0, 0)))
-    if o_pad != o:
-        w_qt = jnp.pad(w_qt, ((0, 0), (0, o_pad - o)))
-        w_scales_t = jnp.pad(w_scales_t, ((0, 0), (0, o_pad - o)))
-        w_sal_t = jnp.pad(w_sal_t, ((0, 0), (0, o_pad - o)))
-
-    grid = (n_pad // tile_n, o_pad // tile_o, k_pad // tile_k)
-    gpt = 1 if single_group else tile_k // group_size
-
-    x_sal_spec = pl.BlockSpec((tile_n, k_s), lambda i, j, k: (i, 0),
-                              memory_space=pltpu.VMEM)
-    w_sal_spec = pl.BlockSpec((k_s, tile_o), lambda i, j, k: (0, j),
-                              memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec((tile_n, tile_k), lambda i, j, k: (i, k),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((tile_k, tile_o), lambda i, j, k: (k, j),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((gpt, tile_o),
-                     (lambda i, j, k: (0, j)) if single_group
-                     else (lambda i, j, k: (k, j)),
-                     memory_space=pltpu.VMEM),
-    ]
-    operands = [x_ns, w_qt, w_scales_t]
+    g = w_scales_t.shape[0]
+    assert g in (1, k_ns // group_size)
+    cdt = x_ns.dtype
+    w = (w_qt.astype(jnp.float32).reshape(g, -1, o)
+         * w_scales_t.astype(jnp.float32)[:, None, :]).reshape(k_ns, o)
+    y = jnp.dot(x_ns, w.astype(cdt), preferred_element_type=jnp.float32)
     if k_s:
-        in_specs.insert(1, x_sal_spec)
-        in_specs.append(w_sal_spec)
-        operands = [x_ns, x_sal, w_qt, w_scales_t, w_sal_t]
-    common = dict(
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((tile_n, tile_o), lambda i, j, k: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad, o_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * o_pad * (k_pad + k_s),
-            bytes_accessed=(n_pad * (k_pad + k_s) * 2 + o_pad * k_pad
-                            + o_pad * max(k_pad // group_size, 1) * 4
-                            + o_pad * k_s * 2 + n_pad * o_pad * 4),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )
-    if single_group:
-        kern = _kernel_colscale if k_s else _kernel_colscale_nosal
-        out = pl.pallas_call(
-            functools.partial(kern, n_k=grid[2]),
-            scratch_shapes=[pltpu.VMEM((tile_n, tile_o), jnp.float32)],
-            **common,
-        )(*operands)
-    else:
-        kern = _kernel if k_s else _kernel_nosal
-        out = pl.pallas_call(
-            functools.partial(kern, group_size=group_size),
-            **common,
-        )(*operands)
-
-    return out[:n, :o].astype(out_dtype)
+        y = y + jnp.dot(x_sal, w_sal_t.astype(x_sal.dtype),
+                        preferred_element_type=jnp.float32)
+    return y.astype(out_dtype)

@@ -1,10 +1,13 @@
-"""Real-quantized linear forward: static permute → act quant → fused kernel.
+"""Real-quantized linear forward: static permute → act quant → matmul.
 
 This is the execution path the reference could only simulate: weights live
-as int4-range values + group scales in HBM and are dequantized inside the
-Pallas matmul kernel; activations are quantized on the fly (XLA-fused
-elementwise) and the salient channels ride a dense bf16 side path in the
-same kernel (SURVEY.md §2.7 "north star" kernel).
+as int4-range values + group scales in device memory; activations are
+quantized on the fly (an XLA-fused elementwise pass) and the salient
+channels ride a dense bf16 side path.  Nibble-packed weights go through
+kernels/int4_group_matmul.py (the Triton kernel on the GPU), int8-container
+packs through the plain XLA integer or dequantize routes, and the
+promoted-int8 identity layout through one XLA int8 GEMM with a scale
+epilogue (kernels/int8_prefill.py).
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from smoothquant_tpu.kernels.int4_group_matmul import int4_group_matmul
+from smoothquant_tpu.kernels.int4_group_matmul import (
+    int4_group_matmul_stacked,
+    kernel_supported,
+)
+from smoothquant_tpu.kernels.int8_prefill import int8_prefill_matmul
 from smoothquant_tpu.kernels.int_group_matmul import int_group_matmul
 from smoothquant_tpu.kernels.pack import (
     PackedLinear,
@@ -22,62 +29,17 @@ from smoothquant_tpu.kernels.pack import (
     quantize_activations_packed_int,
 )
 from smoothquant_tpu.kernels.quant_matmul import dual_path_matmul
+from smoothquant_tpu.kernels.route import use_kernel
 from smoothquant_tpu.quant.config import QuantConfig
-
-# below this many tokens the int8-MXU output-scaled kernel wins (memory
-# bound); above it the dequant kernel's full-depth MXU contractions win.
-# The defaults are overridden by kernels/tuned.json, written by
-# scripts/autotune.py from measurements on the actual chip.
-_INT_PATH_MAX_TOKENS = 256
-# identity-int8 (promote_int8 / lm_head) path: below this many tokens the
-# pure-XLA int8 dot + epilogue beats the fused Pallas kernel (XLA's tiny-N
-# matvec dispatch wins — measured 0.17 vs 0.60 ms at (4, 4096->32000));
-# at/above it the fused kernel's single-pass epilogue wins
-_PREFILL_KERNEL_MIN_TOKENS = 256
-_TUNED_LOADED = False
-
-
-def _load_tuned() -> None:
-    global _INT_PATH_MAX_TOKENS, _PREFILL_KERNEL_MIN_TOKENS, _TUNED_LOADED
-    if _TUNED_LOADED:
-        return
-    _TUNED_LOADED = True
-    import json
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "tuned.json")
-    try:
-        with open(path) as f:
-            tuned = json.load(f)
-    except (OSError, ValueError):
-        return
-    _INT_PATH_MAX_TOKENS = int(
-        tuned.get("int_path_max_tokens", _INT_PATH_MAX_TOKENS))
-    _PREFILL_KERNEL_MIN_TOKENS = int(
-        tuned.get("prefill_kernel_min_tokens", _PREFILL_KERNEL_MIN_TOKENS))
-
-
-def int_path_max_tokens() -> int:
-    _load_tuned()
-    return _INT_PATH_MAX_TOKENS
-
-
-def prefill_kernel_min_tokens() -> int:
-    _load_tuned()
-    return _PREFILL_KERNEL_MIN_TOKENS
+from smoothquant_tpu.quant.core import compute_scale
 
 
 def _identity_int8_forward(packed: PackedLinear, x2d: jax.Array,
-                           out_dtype, interpret: bool = False) -> jax.Array:
+                           out_dtype) -> jax.Array:
     """Forward for promote_int8's identity layout: a masked per-token int8
-    quantize (XLA, one fused pass over x), then ONE full-depth int8 MXU
-    contraction with the per-token x per-column scale epilogue AND the
-    salient fp side path fused in a single Pallas call
-    (kernels/int8_prefill.py) — the int32 accumulator never touches HBM.
+    quantize (one fused pass over x), then ONE full-depth int8 GEMM with
+    the per-token x per-column scale epilogue and the salient fp side path.
     No activation gather beyond the small salient column take."""
-    from smoothquant_tpu.kernels.int8_prefill import int8_prefill_matmul
-    from smoothquant_tpu.quant.core import compute_scale
-
     meta = packed.meta
     c = meta.in_features
     xf = x2d.astype(jnp.float32)
@@ -90,39 +52,16 @@ def _identity_int8_forward(packed: PackedLinear, x2d: jax.Array,
         x_sal = jnp.zeros((x2d.shape[0], k_s), packed.w_sal_t.dtype)
         x_sal = x_sal.at[:, : meta.num_salient].set(
             jnp.take(x2d, sal_idx, axis=-1).astype(x_sal.dtype))
+        w_sal_t = packed.w_sal_t
     else:
         x_main = xf
         x_sal = jnp.zeros((x2d.shape[0], 0), packed.w_sal_t.dtype)
-    absmax = jnp.max(jnp.abs(x_main), axis=-1, keepdims=True)
-    sx = compute_scale(absmax, 8)                            # (N, 1)
-    w_sal_t = (packed.w_sal_t if meta.num_salient
-               else packed.w_sal_t[:0])
-    # pre-quantized mode: XLA fuses the mask/round/divide into one pass
-    # over x.  (The kernel's raw-x mode re-runs the quantize per OUTPUT
-    # tile — measured 0.42 vs 0.34 ms at (1024, 4096->11008) — so the
-    # prologue stays here.)
+        w_sal_t = packed.w_sal_t[:0]
+    sx = compute_scale(jnp.max(jnp.abs(x_main), axis=-1, keepdims=True), 8)
     x_q = jnp.round(x_main / sx).astype(jnp.int8)
-    sw_t = packed.w_scales_t.astype(jnp.float32).reshape(1, -1)
-    use_kernel = (x2d.shape[0] >= prefill_kernel_min_tokens()
-                  and (interpret or jax.default_backend() == "tpu"))
-    if use_kernel:
-        return int8_prefill_matmul(
-            x_q, sx, packed.w_qt, sw_t, x_sal, w_sal_t,
-            out_dtype=out_dtype, interpret=interpret)
-    # small-N (decode lm_head) / non-TPU fallback: XLA int8 dot + epilogue
-    acc = jax.lax.dot_general(
-        x_q, packed.w_qt,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    y = acc.astype(jnp.float32) * sx * sw_t
-    if meta.num_salient:
-        y = y + jax.lax.dot_general(
-            x_sal, w_sal_t,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-    return y.astype(out_dtype)
+    return int8_prefill_matmul(
+        x_q, sx, packed.w_qt, packed.w_scales_t.astype(jnp.float32)
+        .reshape(1, -1), x_sal, w_sal_t, out_dtype=out_dtype)
 
 
 def _int_path_supported(meta) -> bool:
@@ -133,91 +72,29 @@ def _int_path_supported(meta) -> bool:
     return meta.act_group_size == meta.group_size
 
 
-def can_fuse_norm(packed) -> bool:
-    """True when a preceding RMSNorm can fold into the activation-prep
-    kernel for this pack (prefetch-scan int path): input arrives pre-
-    permuted (shared residual basis) and the recipe is matched per-group."""
-    if not isinstance(packed, PackedLinear):
-        return False
-    m = packed.meta
-    return (m.pre_permuted and m.nibble and m.layout != "identity"
-            and m.act_quant not in ("per_token", "per_tensor")
-            and m.act_group_size == m.group_size)
+def _nibble_quantize(packed: PackedLinear, x2d: jax.Array, perm, ns_mask):
+    """(x_q, x_scales, x_sal) for a nibble pack (one layer's perm/mask).
 
-
-def can_fuse_mlp(gu, dn, n_tokens: int) -> bool:
-    """True when the gate_up + SwiGLU + down chain can run as ONE Pallas
-    call (kernels.mlp_fused): both nibble-packed with matching grouped
-    recipes, gate_up rows pre-permuted into down's packed order
-    (fold_input_perm), decode-size token count, bias-free gate_up."""
-    from smoothquant_tpu.kernels.mlp_fused import mlp_fused_supported
-
-    if not (isinstance(gu, PackedLinear) and isinstance(dn, PackedLinear)):
-        return False
-    if gu.bias is not None:
-        return False
-    if gu.w_qt.ndim != 3 or dn.w_qt.ndim != 3:
-        return False  # block_decode_tree layout: rawx-only
-    return mlp_fused_supported(gu.meta, dn.meta, n_tokens)
-
-
-def real_mlp_fused(
-    gu: PackedLinear,
-    dn: PackedLinear,
-    x: jax.Array,
-    *,
-    layer_idx: jax.Array,
-    norm: Optional[tuple] = None,  # (weight_row, eps, "rms")
-    out_dtype=None,
-    interpret: bool = False,
-) -> jax.Array:
-    """down(silu(gate(x)) * up(x)) in one fused Pallas call (decode scan).
-    Layer-stacked packs only; see kernels.mlp_fused for the layout
-    contract.  Numerics match the two-launch rawx path computed in f32."""
-    from smoothquant_tpu.kernels.mlp_fused import mlp_swiglu_fused_stacked
-
-    shape = x.shape
-    x2d = x.reshape(-1, shape[-1])
-    norm_row, eps = None, 0.0
-    if norm is not None:
-        n_w, n_eps, n_kind = norm
-        assert n_kind == "rms" and can_fuse_norm(gu)
-        norm_row, eps = n_w, float(n_eps)
-    y = mlp_swiglu_fused_stacked(
-        jnp.asarray(layer_idx, jnp.int32).reshape(1), x2d, norm_row,
-        gu.w_qt, gu.w_scales_t, gu.w_sal_t.astype(x.dtype),
-        dn.w_qt, dn.w_scales_t, dn.w_sal_t.astype(x.dtype),
-        group_size=gu.meta.group_size, act_bits=gu.meta.act_bits,
-        n_sal1=gu.meta.num_salient, n_sal2=dn.meta.num_salient,
-        gu_out_true=gu.meta.out_features, dn_out_true=dn.meta.out_features,
-        eps=eps, out_dtype=out_dtype or x.dtype, interpret=interpret,
-    )
-    if dn.bias is not None:
-        y = y + dn.bias[layer_idx].astype(y.dtype)
-    return y.reshape(*shape[:-1], y.shape[-1])
-
-
-def _identity_nibble_quantize(packed: PackedLinear, x2d: jax.Array,
-                              perm_row, mask_row):
-    """(x_q, x_scales, x_sal) for the IDENTITY nibble layout: activations
-    group-quantize in ORIGINAL channel order with the scattered salient
-    channels masked to zero (their int-weight rows are zero too); the
-    salient slice rides a small k_s-wide gather."""
-    from smoothquant_tpu.quant.core import compute_scale
-
+    Permuted layout: gather into packed order (unless the input arrives
+    pre-permuted), then the recipe's integer quantize.  Identity layout:
+    activations group-quantize in ORIGINAL channel order with the scattered
+    salient channels masked to zero (their int-weight rows are zero too);
+    the salient slice rides a small k_s-wide gather."""
     meta = packed.meta
+    if meta.layout != "identity":
+        x_perm = x2d if meta.pre_permuted else jnp.take(x2d, perm, axis=-1)
+        return quantize_activations_packed_int(x_perm, meta)
     n, c = x2d.shape
-    xf = x2d.astype(jnp.float32) * mask_row.astype(jnp.float32)[None, :]
+    xf = x2d.astype(jnp.float32) * ns_mask.astype(jnp.float32)[None, :]
     if meta.k_ns != c:
         xf = jnp.pad(xf, ((0, 0), (0, meta.k_ns - c)))
-    g_w = meta.k_ns // meta.group_size
-    xg = xf.reshape(n, g_w, meta.group_size)
-    absmax = jnp.max(jnp.abs(xg), axis=-1, keepdims=True)
-    scales = compute_scale(absmax, meta.act_bits)
+    xg = xf.reshape(n, meta.k_ns // meta.group_size, meta.group_size)
+    scales = compute_scale(jnp.max(jnp.abs(xg), axis=-1, keepdims=True),
+                           meta.act_bits)
     x_q = jnp.round(xg / scales).astype(jnp.int8).reshape(n, meta.k_ns)
     x_sal = jnp.zeros((n, meta.k_s), x2d.dtype)
     if meta.num_salient:
-        sal_idx = perm_row[c - meta.num_salient:]
+        sal_idx = perm[c - meta.num_salient:]
         x_sal = x_sal.at[:, : meta.num_salient].set(
             jnp.take(x2d, sal_idx, axis=-1))
     return x_q, scales[..., 0].astype(jnp.float32), x_sal
@@ -230,11 +107,9 @@ def real_quant_linear(
     *,
     compute: str = "auto",  # "auto" | "dequant" | "int"
     interpret: bool = False,
+    plain: bool = False,
     out_dtype=None,
     layer_idx: Optional[jax.Array] = None,
-    norm: Optional[tuple] = None,  # (weight_row, eps, kind): fuse the
-    #                                preceding norm into the act-prep kernel
-    #                                (requires can_fuse_norm(packed))
 ) -> jax.Array:
     """y = act_qdq(x) @ W_qdq^T + bias with true int-weight storage.
 
@@ -242,238 +117,78 @@ def real_quant_linear(
     the packed (static-permutation) domain.  The quantization recipe is
     self-contained in packed.meta (recorded at pack time), so models can mix
     per-layer recipes (e.g. int8 lm_head over an int4 body).  compute picks
-    the kernel: "int" = int8-MXU matmul with output-side scaling
-    (decode-optimal), "dequant" = in-VMEM weight dequant + bf16 MXU
-    (prefill-optimal), "auto" = by token count.
+    the route for int8-container packs: "int" = per-group int8 products with
+    output-side scaling, "dequant" = dequantized weight + float GEMM,
+    "auto" = int where the recipe allows it.  Nibble packs always take the
+    int4 matmul: its Triton kernel where kernels.route.use_kernel says so
+    (interpret=True runs it in the Pallas interpreter; plain=True forces
+    the XLA route), else the plain XLA route.
 
     layer_idx: when `packed` is a LAYER-STACKED pytree (stack_layers output:
-    every array carries a leading L axis), selects the layer — the stacked
-    kernel streams only that layer's blocks via scalar prefetch, so the
-    full weight stack rides lax.scan without per-iteration slice copies.
+    every array carries a leading L axis), selects the layer — the kernel
+    reads only that layer's weights, so the full weight stack rides lax.scan
+    without per-iteration slice copies.
     """
     del cfg
     meta = packed.meta
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
-    n_tokens = x2d.shape[0]
+    out_dtype = out_dtype or x.dtype
+    bias = packed.bias
 
-    if layer_idx is not None:
+    if layer_idx is not None or meta.nibble:
         if not (meta.nibble and _int_path_supported(meta)):
             raise NotImplementedError(
-                "prefetch-scan path requires a nibble-packed int recipe")
-        from smoothquant_tpu.kernels.int4_group_matmul import (
-            int4_group_matmul_stacked,
-        )
-
-        if meta.pre_permuted:  # producer outputs already in packed order
-            x_perm = x2d
-        else:
-            perm_i = packed.perm[layer_idx]
-            x_perm = jnp.take(x2d, perm_i, axis=-1)
-        grouped = (meta.act_quant not in ("per_token", "per_tensor")
-                   and meta.act_group_size == meta.group_size)
-        norm_row, eps = None, 0.0
-        if norm is not None:
-            n_w, n_eps, n_kind = norm
-            if grouped and n_kind == "rms":
-                # n_w may be the FULL (L, C) stacked norm — the rawx kernel
-                # selects the layer row via scalar prefetch (no XLA slice)
-                norm_row, eps = n_w, float(n_eps)  # fused in-kernel
-            else:  # unfusible recipe: apply the norm first
-                from smoothquant_tpu.models.common import rms_norm
-
-                if n_w.ndim == 3:
-                    n_w = n_w[layer_idx, 0]
-                elif n_w.ndim == 2:
-                    n_w = n_w[layer_idx]
-                x_perm = rms_norm({"weight": n_w}, x_perm, n_eps)
-        if (meta.layout == "identity" and grouped
-                and x2d.shape[0] <= 32):
-            # identity layout: NO input gather at all — the 0/1 ns_mask
-            # rides the kernel's norm-row slot (norm_kind="mask") and the
-            # scattered salient channels arrive via a small k_s gather
-            from smoothquant_tpu.kernels.int4_group_matmul import (
-                int4_group_matmul_stacked_rawx,
-            )
-
-            assert norm is None, "identity layout call sites fuse no norm"
-            if getattr(packed, "sal_select", None) is not None:
-                # in-kernel salient gather-as-dot (block_decode_tree)
-                x_sal, sel = None, packed.sal_select
-            else:
-                sel = None
-                perm_row = packed.perm[layer_idx]
-                x_sal = jnp.zeros((x2d.shape[0], meta.k_s), x.dtype)
-                if meta.num_salient:
-                    sal_idx = perm_row[meta.in_features - meta.num_salient:]
-                    x_sal = x_sal.at[:, : meta.num_salient].set(
-                        jnp.take(x2d, sal_idx, axis=-1))
-            y = int4_group_matmul_stacked_rawx(
-                jnp.asarray(layer_idx, jnp.int32).reshape(1),
-                x2d, packed.ns_mask[layer_idx],
-                packed.w_qt, packed.w_scales_t,
-                packed.w_sal_t.astype(x.dtype), x_sal, sel,
-                group_size=meta.group_size, act_bits=meta.act_bits,
-                num_salient=meta.num_salient, norm_kind="mask",
-                out_dtype=out_dtype or x.dtype, interpret=interpret,
-            )
-        elif meta.layout == "identity" and grouped:
-            x_q, x_scales, x_sal = _identity_nibble_quantize(
-                packed, x2d, packed.perm[layer_idx],
-                packed.ns_mask[layer_idx])
-            y = int4_group_matmul_stacked(
-                jnp.asarray(layer_idx, jnp.int32).reshape(1),
-                x_q, x_scales, packed.w_qt, packed.w_scales_t,
-                x_sal.astype(x.dtype), packed.w_sal_t.astype(x.dtype),
-                group_size=meta.group_size,
-                out_dtype=out_dtype or x.dtype,
-                interpret=interpret,
-            )
-        elif grouped and x2d.shape[0] <= 32:
-            # fully-fused decode path: (RMSNorm) + salient split + per-group
-            # act quantize + int4 matmul in ONE Pallas call — the act_prep
-            # kernel + XLA glue between it and the matmul cost ~2 launches
-            # (~8-13 us fixed overhead each) per linear in the decode scan.
-            # Gated to small N: the kernel's per-(token, group) scale cache
-            # scratch scales with tile_n
-            from smoothquant_tpu.kernels.int4_group_matmul import (
-                int4_group_matmul_stacked_rawx,
-            )
-
-            y = int4_group_matmul_stacked_rawx(
-                jnp.asarray(layer_idx, jnp.int32).reshape(1),
-                x_perm, norm_row, packed.w_qt, packed.w_scales_t,
-                packed.w_sal_t.astype(x.dtype),
-                group_size=meta.group_size, act_bits=meta.act_bits,
-                num_salient=meta.num_salient, eps=eps,
-                out_dtype=out_dtype or x.dtype, interpret=interpret,
-            )
-        elif grouped:
-            # mid-size token counts: fused quantize+layout kernel feeding
-            # the stacked matmul pre-laid (two launches, no XLA chain)
-            from smoothquant_tpu.kernels.act_prep import (
-                quantize_acts_grouped_t,
-            )
-
-            if norm_row is not None:
-                from smoothquant_tpu.models.common import rms_norm
-
-                x_perm = rms_norm(
-                    {"weight": (norm_row[layer_idx, 0]
-                                if norm_row.ndim == 3
-                                else norm_row[layer_idx]
-                                if norm_row.ndim == 2 else norm_row)},
-                    x_perm, eps)
-            k_ns_raw = meta.in_features - meta.num_salient
-            x_ns = x_perm[:, :k_ns_raw]
-            if meta.k_ns != k_ns_raw:
-                x_ns = jnp.pad(x_ns, ((0, 0), (0, meta.k_ns - k_ns_raw)))
-            x3, xs_t = quantize_acts_grouped_t(
-                x_ns, group_size=meta.group_size, act_bits=meta.act_bits,
-                interpret=interpret)
-            x_sal = jnp.zeros((x2d.shape[0], meta.k_s), x.dtype)
-            if meta.num_salient:
-                x_sal = x_sal.at[:, :meta.num_salient].set(
-                    x_perm[:, k_ns_raw:].astype(x.dtype))
-            y = int4_group_matmul_stacked(
-                jnp.asarray(layer_idx, jnp.int32).reshape(1),
-                x3, xs_t, packed.w_qt, packed.w_scales_t,
-                x_sal, packed.w_sal_t.astype(x.dtype),
-                group_size=meta.group_size,
-                out_dtype=out_dtype or x.dtype,
-                interpret=interpret,
-                pre_laid=x2d.shape[0],
-            )
-        else:
-            x_q, x_scales, x_sal = quantize_activations_packed_int(
-                x_perm, meta)
-            y = int4_group_matmul_stacked(
-                jnp.asarray(layer_idx, jnp.int32).reshape(1),
-                x_q, x_scales, packed.w_qt, packed.w_scales_t,
-                x_sal.astype(x.dtype), packed.w_sal_t.astype(x.dtype),
-                group_size=meta.group_size,
-                out_dtype=out_dtype or x.dtype,
-                interpret=interpret,
-            )
-        if y.shape[-1] > meta.out_features:
-            y = y[..., : meta.out_features]
-        if packed.bias is not None:
-            y = y + packed.bias[layer_idx].astype(y.dtype)
-        return y.reshape(*shape[:-1], y.shape[-1])
-
-    if meta.layout == "identity" and not meta.nibble:
-        # promote_int8 prefill layout: fused Pallas epilogue kernel
-        y = _identity_int8_forward(packed, x2d, out_dtype or x.dtype,
-                                   interpret=interpret)
-        if y.shape[-1] > meta.out_features:
-            y = y[..., : meta.out_features]
-        if packed.bias is not None:
-            y = y + packed.bias.astype(y.dtype)
-        return y.reshape(*shape[:-1], y.shape[-1])
-
-    if meta.layout == "identity" and meta.nibble:
-        # identity NIBBLE layout (per-layer path): masked original-order
-        # group quantize + the int kernel; salient via a small gather
-        x_q, x_scales, x_sal = _identity_nibble_quantize(
-            packed, x2d, packed.perm, packed.ns_mask)
-        y = int4_group_matmul(
-            x_q, x_scales, packed.w_qt, packed.w_scales_t,
-            x_sal.astype(x.dtype), packed.w_sal_t.astype(x.dtype),
-            group_size=meta.group_size,
-            out_dtype=out_dtype or x.dtype,
-            interpret=interpret,
-        )
-        if y.shape[-1] > meta.out_features:
-            y = y[..., : meta.out_features]
-        if packed.bias is not None:
-            y = y + packed.bias.astype(y.dtype)
-        return y.reshape(*shape[:-1], y.shape[-1])
-
-    x_perm = x2d if meta.pre_permuted else jnp.take(x2d, packed.perm, axis=-1)
-
-    if meta.nibble:
-        compute = "int"  # nibble storage is only consumable by the int path
-    elif compute == "auto":
-        if not _int_path_supported(meta):
-            compute = "dequant"
-        elif meta.group_size >= meta.k_ns:
-            # single-group (per-channel / promoted-int8) recipes run ONE
-            # full-depth int8 contraction — int wins at every token count
-            compute = "int"
-        else:
-            compute = ("int" if n_tokens <= int_path_max_tokens()
-                       else "dequant")
-    if compute == "int" and not _int_path_supported(meta):
-        raise ValueError("int compute path unsupported for this recipe")
-
-    if compute == "int":
-        x_q, x_scales, x_sal = quantize_activations_packed_int(x_perm, meta)
-        kernel = int4_group_matmul if meta.nibble else int_group_matmul
-        y = kernel(
-            x_q, x_scales, packed.w_qt, packed.w_scales_t,
-            x_sal.astype(x.dtype), packed.w_sal_t.astype(x.dtype),
-            group_size=meta.group_size,
-            out_dtype=out_dtype or x.dtype,
-            interpret=interpret,
-        )
+                "layer-stacked packs need a nibble-packed int recipe")
+        stacked = layer_idx is not None
+        at = ((lambda a: None if a is None else a[layer_idx]) if stacked
+              else (lambda a: a))
+        x_q, x_scales, x_sal = _nibble_quantize(
+            packed, x2d, at(packed.perm), at(packed.ns_mask))
+        w = ((packed.w_qt, packed.w_scales_t, packed.w_sal_t) if stacked else
+             (packed.w_qt[None], packed.w_scales_t[None],
+              packed.w_sal_t[None]))
+        y = int4_group_matmul_stacked(
+            layer_idx if stacked else jnp.zeros((), jnp.int32),
+            x_q, x_scales, w[0], w[1], x_sal.astype(x.dtype),
+            w[2].astype(x.dtype), group_size=meta.group_size,
+            out_dtype=out_dtype,
+            kernel=(kernel_supported(meta.group_size)
+                    and use_kernel(interpret, plain)),
+            interpret=interpret)
+        bias = at(bias)
+    elif meta.layout == "identity":
+        # promote_int8 prefill layout / int8 per-channel lm_head
+        y = _identity_int8_forward(packed, x2d, out_dtype)
     else:
-        x_ns_q, x_sal = quantize_activations_packed(x_perm, meta)
-        y = dual_path_matmul(
-            x_ns_q.astype(x.dtype),
-            x_sal.astype(x.dtype),
-            packed.w_qt,
-            packed.w_scales_t,
-            packed.w_sal_t.astype(x.dtype),
-            group_size=meta.group_size,
-            out_dtype=out_dtype or x.dtype,
-            interpret=interpret,
-        )
+        x_perm = (x2d if meta.pre_permuted
+                  else jnp.take(x2d, packed.perm, axis=-1))
+        if compute == "auto":
+            # one route for every token count, so a token-chunked call
+            # (ForwardContext.tp_overlap_chunks) gives the same bits
+            compute = "int" if _int_path_supported(meta) else "dequant"
+        if compute == "int" and not _int_path_supported(meta):
+            raise ValueError("int compute path unsupported for this recipe")
+        if compute == "int":
+            x_q, x_scales, x_sal = quantize_activations_packed_int(x_perm,
+                                                                   meta)
+            y = int_group_matmul(
+                x_q, x_scales, packed.w_qt, packed.w_scales_t,
+                x_sal.astype(x.dtype), packed.w_sal_t.astype(x.dtype),
+                group_size=meta.group_size, out_dtype=out_dtype)
+        else:
+            x_ns_q, x_sal = quantize_activations_packed(x_perm, meta)
+            y = dual_path_matmul(
+                x_ns_q.astype(x.dtype), x_sal.astype(x.dtype),
+                packed.w_qt, packed.w_scales_t,
+                packed.w_sal_t.astype(x.dtype),
+                group_size=meta.group_size, out_dtype=out_dtype)
     # packs built with align_o padding return extra zero columns — slice them
     # off before the bias.  Under shard_map the arrays are O-SHARDS (width <=
     # meta.out_features, which records global dims), so only wider-than-meta
     # outputs are sliced.
     if y.shape[-1] > meta.out_features:
         y = y[..., : meta.out_features]
-    if packed.bias is not None:
-        y = y + packed.bias.astype(y.dtype)
+    if bias is not None:
+        y = y + bias.astype(y.dtype)
     return y.reshape(*shape[:-1], y.shape[-1])

@@ -128,41 +128,26 @@ def _alibi_attention(q, k, v, slopes, causal_offset, valid_len, attn_mask):
 
 
 def _cached_alibi_attention(q, cache, slopes, offset, ctx, attn_mask):
-    """Flash-kernel / einsum dispatch for ALiBi decode over a cache — the
-    Bloom twin of common.cached_attention (which handles the non-ALiBi
-    archs).  The kernel applies score += slope_h * key_pos in-kernel."""
+    """ALiBi decode over a cache — the Bloom twin of common.cached_attention
+    (which handles the non-ALiBi archs): single-token steps go through
+    kernels/decode_attention.py, which adds slope_h * key_pos to the
+    scores; multi-token steps take the einsum."""
     from smoothquant_tpu.kernels import decode_attention as da
-    from smoothquant_tpu.models.common import QuantKVCache
+    from smoothquant_tpu.models.common import (QuantKVCache, attention_route,
+                                               decode_bias)
 
     b, sq, nh, d = q.shape
     quant = isinstance(cache, QuantKVCache)
     kbuf = cache.k_q if quant else cache.k
     s = kbuf.shape[2]
-    mode = ctx.attn if ctx is not None else "auto"
-    interpret = bool(ctx is not None and ctx.interpret)
-    use_kernel = (
-        mode != "einsum"
-        and sq == 1
-        and da.supported(s, nh, nh, d)
-        and (mode == "kernel" or quant)
-        and (mode == "kernel" or interpret
-             or jax.default_backend() == "tpu")
-    )
-    if use_kernel:
+    if sq == 1:
         valid = jnp.broadcast_to(jnp.asarray(cache.pos, jnp.int32), (b,))
-        col = jax.lax.broadcasted_iota(jnp.int32, (b, s), 1)
-        ok = col < valid[:, None]
-        if attn_mask is not None:
-            ok = jnp.logical_and(ok, attn_mask.astype(bool))
-        bias = jnp.where(ok, 0.0, NEG_INF).astype(jnp.float32)
-        if quant:
-            out = da.decode_attention(
-                q[:, 0], cache.k_q, cache.v_q, bias,
-                cache.k_scale, cache.v_scale, slopes, interpret=interpret)
-        else:
-            out = da.decode_attention(
-                q[:, 0], cache.k, cache.v, bias, None, None, slopes,
-                interpret=interpret)
+        bias = decode_bias(valid - 1, b, s, attn_mask)
+        out = da.decode_attention(
+            q[:, 0], kbuf, cache.v_q if quant else cache.v, bias,
+            cache.k_scale if quant else None,
+            cache.v_scale if quant else None, slopes,
+            **attention_route(ctx, s, nh, nh, d))
         return out[:, None]
     ck, cv = cache.read()
     return _alibi_attention(q, ck, cv, slopes, offset, cache.pos, attn_mask)
@@ -236,14 +221,13 @@ def stacked_caches(cfg: BloomConfig, batch: int, max_len: int, dtype,
 
 def _prefetch_scan_decode(params, x, cfg, ctx, caches, slopes, attn_mask):
     """Single-token decode over stacked PACKED layers without scan-slice
-    copies — the Bloom twin of opt._prefetch_scan_decode: scalar-prefetch
-    kernels stream only layer i's weight/KV tiles; the flash decode
-    attention applies the per-head ALiBi term in-kernel (score +=
+    copies — the Bloom twin of opt._prefetch_scan_decode: the kernels read
+    only layer i's weight/KV tiles; the decode attention applies the per-head ALiBi term in-kernel (score +=
     slope_h * key_pos, matching _alibi_attention)."""
     from smoothquant_tpu.models.common import (
         QuantKVCache,
         decode_bias,
-        stacked_cache_append_fused,
+        stacked_cache_append,
         stacked_flash_attention,
     )
 
@@ -269,8 +253,7 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, slopes, attn_mask):
         qkv = fused.reshape(b, s, nh, 3, d)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
-        cache, pos_i = stacked_cache_append_fused(cache, i, k, v, None,
-                                                  None, ctx, rotate_k=False)
+        cache, pos_i = stacked_cache_append(cache, i, k, v)
         bias = decode_bias(pos_i, b, s_max, attn_mask)
         a = stacked_flash_attention(cache, i, q[:, 0], bias, ctx,
                                     alibi_slopes=slopes)
@@ -296,18 +279,10 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, slopes, attn_mask):
 
 
 def _prefetch_capable(params, cfg, ctx, caches, s: int) -> bool:
-    from smoothquant_tpu.kernels import decode_attention as da
-    from smoothquant_tpu.models.common import (
-        QuantKVCache,
-        prefetch_tree_capable,
-    )
+    from smoothquant_tpu.models.common import prefetch_tree_capable
 
-    if not prefetch_tree_capable(params["layers"].get("stacked"), ctx,
-                                 caches, s):
-        return False
-    kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
-    return da.supported(kbuf.shape[3], cfg.num_attention_heads,
-                        cfg.num_attention_heads, cfg.head_dim)
+    return prefetch_tree_capable(params["layers"].get("stacked"), ctx,
+                                 caches, s)
 
 
 def forward(

@@ -36,15 +36,16 @@ class ForwardContext:
     quant: when set, weight-quantized linears apply on-the-fly activation
       quantization (the simulated path).  Params must have been produced by
       quantize_model_params (dict linears) or pack_model (PackedLinear —
-      the real-kernel path; `compute` selects int/dequant/auto kernels).
+      the real-quantized path; `compute` selects int/dequant/auto routes).
     taps: when set, every quantizable linear reports input (and output)
       statistics for calibration (replaces the reference's torch hooks).
     """
 
     quant: Optional[QuantConfig] = None
     taps: Optional[TapCollector] = None
-    compute: str = "auto"  # real-path kernel choice: auto | int | dequant
-    interpret: bool = False  # run Pallas kernels in interpreter mode (CPU)
+    compute: str = "auto"  # int8-container pack route: auto | int | dequant
+    interpret: bool = False  # run the Pallas kernels in the interpreter
+    #                          (CPU tests); off the GPU they run only so
     tp_axis: Optional[str] = None  # inside shard_map: packed-linear outputs
     #                                are computed on local O-shards and
     #                                combined over this mesh axis per
@@ -77,33 +78,12 @@ class ForwardContext:
     #                                ring attention (parallel/cp.py) — K/V
     #                                chunks stream around the ring via
     #                                ppermute with a streaming softmax
-    attn: str = "auto"  # cached-decode attention path: "kernel" = fused
-    #                     Pallas flash-decode kernel, "einsum" = XLA
-    #                     full-cache einsum, "auto" = kernel when the shape
-    #                     supports it and the backend compiles Pallas
-    #                     (TPU, or anywhere with interpret=True)
-    fuse_attn: str = "auto"  # prefetch-scan decode attention composition
-    #                          (int8 cache, unmasked):
-    #   "auto":  VIRTUAL-TILE attention (kernels/attn_fused.py) — attention
-    #            reads the OLD cache and folds the new position in from
-    #            registers (rotary+quantize in-kernel, bias in-kernel); the
-    #            aliased cache writer runs AFTER, off the critical path
-    #            (WAR, not RAW — attention never waits on the row write).
-    #   "fused": ALSO write the cache rows inside the attention kernel —
-    #            one launch fewer, but the row write-back costs ~9 us/layer
-    #            of dynamic_update_slice + async scale-copy glue (profiled
-    #            in scripts/trace_timeline.py), so "auto" beats it.
-    #   "off":   separate writer + bias + attention kernels — processes the
-    #            new position inside its S-tile (exact softmax order; the
-    #            fused variants fold it in last, an f32-rounding reorder).
-    fuse_mlp: bool = False  # OPT-IN: run gate_up+SwiGLU+down as ONE Pallas
-    #                         megakernel (kernels/mlp_fused.py) in the
-    #                         prefetch-scan decode.  Wins 13% standalone but
-    #                         measured ~5% SLOWER inside the full decode
-    #                         scan (the scan pipeline already hides launch
-    #                         overhead; the megakernel's VMEM-resident dual
-    #                         weight sets trade against cross-kernel
-    #                         prefetch) — scripts/mlp_scan_probe.py.
+    plain: bool = False  # for the benchmark's A/B (bench.py) and the smoke
+    #                      check's kernel-vs-XLA comparison only: every
+    #                      operation takes its plain XLA route — the Pallas
+    #                      kernels (kernels/route.py) AND cuDNN prefill
+    #                      attention give way to jnp; both choices ride this
+    #                      one flag
 
 
 def call_linear(
@@ -113,7 +93,6 @@ def call_linear(
     ctx: Optional[ForwardContext],
     quantize_output: bool = False,
     layer_idx: Optional[jax.Array] = None,
-    norm: Optional[tuple] = None,
 ) -> jax.Array:
     """A quantizable linear call site.
 
@@ -129,16 +108,12 @@ def call_linear(
         ctx.taps.tap_input(name, x)
     if isinstance(params, dict) and "weight_t" in params:
         # transposed-fp decode layout (llama.pack_fp_decode): under scan
-        # (layer_idx set) the stacked scalar-prefetch kernel streams only
-        # layer i's tiles — the no-copy bf16 twin of the packed path
+        # (layer_idx set) the dot reads layer i of the loop-invariant stack
         from smoothquant_tpu.kernels.fp_matmul import fp_matmul_stacked
 
-        interpret = ctx.interpret if ctx is not None else False
         x2d = x.reshape(-1, x.shape[-1])
         if layer_idx is not None:
-            y = fp_matmul_stacked(
-                jnp.asarray(layer_idx, jnp.int32).reshape(1), x2d,
-                params["weight_t"], interpret=interpret)
+            y = fp_matmul_stacked(layer_idx, x2d, params["weight_t"])
             bias = params.get("bias")
             if bias is not None:
                 y = y + bias[layer_idx].astype(y.dtype)
@@ -155,8 +130,10 @@ def call_linear(
         from smoothquant_tpu.kernels.real_linear import real_quant_linear
         from smoothquant_tpu.quant import core
 
-        compute = ctx.compute if ctx is not None else "auto"
-        interpret = ctx.interpret if ctx is not None else False
+        kw = dict(compute=ctx.compute if ctx is not None else "auto",
+                  interpret=bool(ctx is not None and ctx.interpret),
+                  plain=bool(ctx is not None and ctx.plain),
+                  layer_idx=layer_idx)
         if (ctx is not None and ctx.tp_axis is not None
                 and params.meta.tp_reduce == "psum"):
             # Megatron row-parallel: local K-shard partial product, then
@@ -172,9 +149,7 @@ def call_linear(
                 prev = None
                 for c in range(ch):
                     yc = real_quant_linear(
-                        params, x[:, c * step:(c + 1) * step],
-                        compute=compute, interpret=interpret,
-                        layer_idx=layer_idx, norm=norm)
+                        params, x[:, c * step:(c + 1) * step], **kw)
                     if prev is not None:
                         # chain ONLY the collectives: the barrier puts a
                         # dependency path between successive psums (so
@@ -182,21 +157,17 @@ def call_linear(
                         # chunks) while chunk c+1's matmul stays
                         # independent of chunk c's in-flight all-reduce —
                         # the structure the latency-hiding scheduler
-                        # overlaps on a real ICI mesh
+                        # overlaps on a real device mesh
                         yc, prev = jax.lax.optimization_barrier((yc, prev))
                     yc = jax.lax.psum(yc, ctx.tp_axis)
                     prev = yc
                     parts.append(yc)
                 y = jnp.concatenate(parts, axis=1)
             else:
-                y = real_quant_linear(params, x, compute=compute,
-                                      interpret=interpret,
-                                      layer_idx=layer_idx, norm=norm)
+                y = real_quant_linear(params, x, **kw)
                 y = jax.lax.psum(y, ctx.tp_axis)
         else:
-            y = real_quant_linear(params, x, compute=compute,
-                                  interpret=interpret, layer_idx=layer_idx,
-                                  norm=norm)
+            y = real_quant_linear(params, x, **kw)
             if (ctx is not None and ctx.tp_axis is not None
                     and params.meta.tp_reduce == "gather"):
                 # v1 column-parallel: each device computed its O-shard
@@ -387,86 +358,6 @@ class QuantKVCache(NamedTuple):
         return k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
 
 
-class SMajorQuantKVCache(NamedTuple):
-    """INT8 KV cache in S-MAJOR value layout: k_q/v_q (B, S, H_kv*D) — one
-    cache row holds every head's vector for one position — with HEAD-major
-    scales (B, H_kv, S).  This is the layout the batched-head decode
-    attention kernel (kernels/attn_smajor.py) streams: 8 real query heads
-    share one dot and one softmax, where the head-major layout issued one
-    per head (VERDICT r4 round-5 demand #2).  Stacked (scan) form carries a
-    leading L axis on every field.
-
-    Numerics are identical to QuantKVCache (same per-(position, head)
-    symmetric absmax int8); only the byte layout differs.
-    """
-
-    k_q: jax.Array       # (B, S, H_kv*D) int8
-    v_q: jax.Array
-    k_scale: jax.Array   # (B, H_kv, S) f32
-    v_scale: jax.Array
-    pos: jax.Array       # () or (B,) int32
-
-    @classmethod
-    def create(cls, batch: int, max_len: int, n_kv_heads: int, head_dim: int,
-               dtype=None, per_slot: bool = False):
-        del dtype
-        pos = jnp.zeros((batch,) if per_slot else (), jnp.int32)
-        return cls(
-            k_q=jnp.zeros((batch, max_len, n_kv_heads * head_dim), jnp.int8),
-            v_q=jnp.zeros((batch, max_len, n_kv_heads * head_dim), jnp.int8),
-            k_scale=jnp.zeros((batch, n_kv_heads, max_len), jnp.float32),
-            v_scale=jnp.zeros((batch, n_kv_heads, max_len), jnp.float32),
-            pos=pos,
-        )
-
-    @property
-    def n_kv_heads(self) -> int:
-        return self.k_scale.shape[-2]
-
-    def update(self, k_new: jax.Array, v_new: jax.Array) -> "SMajorQuantKVCache":
-        """Append k/v (B, Sq, H, D) at self.pos (jnp path — prefill and CPU
-        fallbacks; the decode scan uses the fused Pallas writer)."""
-        b, sq, h, d = k_new.shape
-        kq, ks = QuantKVCache._quantize(k_new)   # (B, Sq, H, D) -> per-head
-        vq, vs = QuantKVCache._quantize(v_new)
-        kq = kq.reshape(b, sq, h * d)
-        vq = vq.reshape(b, sq, h * d)
-        ks = ks.transpose(0, 2, 1)               # (B, H, Sq)
-        vs = vs.transpose(0, 2, 1)
-        if self.pos.ndim == 0:
-            out = self._replace(
-                k_q=jax.lax.dynamic_update_slice(self.k_q, kq, (0, self.pos, 0)),
-                v_q=jax.lax.dynamic_update_slice(self.v_q, vq, (0, self.pos, 0)),
-                k_scale=jax.lax.dynamic_update_slice(
-                    self.k_scale, ks, (0, 0, self.pos)),
-                v_scale=jax.lax.dynamic_update_slice(
-                    self.v_scale, vs, (0, 0, self.pos)),
-                pos=self.pos + sq)
-        else:
-            u_v = jax.vmap(lambda buf, new, p: jax.lax.dynamic_update_slice(
-                buf, new, (p, 0)))
-            u_s = jax.vmap(lambda buf, new, p: jax.lax.dynamic_update_slice(
-                buf, new, (0, p)))
-            out = self._replace(
-                k_q=u_v(self.k_q, kq, self.pos),
-                v_q=u_v(self.v_q, vq, self.pos),
-                k_scale=u_s(self.k_scale, ks, self.pos),
-                v_scale=u_s(self.v_scale, vs, self.pos),
-                pos=self.pos + sq)
-        return out
-
-    def read(self) -> tuple[jax.Array, jax.Array]:
-        """(B, H, S, D) dequantized views (einsum fallback path)."""
-        b, s, hd = self.k_q.shape
-        h = self.n_kv_heads
-        d = hd // h
-        k = self.k_q.reshape(b, s, h, d).transpose(0, 2, 1, 3)
-        v = self.v_q.reshape(b, s, h, d).transpose(0, 2, 1, 3)
-        k = k.astype(jnp.float32) * self.k_scale[..., None]
-        v = v.astype(jnp.float32) * self.v_scale[..., None]
-        return k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
-
-
 def attention(
     q: jax.Array,
     k: jax.Array,
@@ -508,44 +399,30 @@ def attention(
 
     b, sq, nh, d = q.shape
     n_kv = k.shape[1]
-    if n_kv != nh:
-        rep = nh // n_kv
-        k = jnp.repeat(k, rep, axis=1)
-        v = jnp.repeat(v, rep, axis=1)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
 
-    # plain causal PREFILL on TPU rides jax's Pallas flash-attention: the
-    # einsum path materializes (B, H, S, S) f32 scores in HBM (~0.5
-    # ms/layer of the full-model prefill at S=1024, profiled in
-    # scripts/prefill_model_profile.py); flash streams K/V tiles instead.
+    # plain causal bf16 PREFILL on the GPU rides cuDNN's fused attention
+    # (named, so a shape cuDNN refuses fails instead of silently falling
+    # back): the einsum below materializes (B, H, S, S) f32 scores.
     # Masked / cached / windowed variants keep the einsum (exact-mask
     # reference semantics).
     if (attn_mask is None and valid_len is None and sliding_window is None
             and isinstance(causal_offset, int) and causal_offset == 0
-            and sq == k.shape[2] and sq >= 256 and sq % 128 == 0
-            and d % 64 == 0 and (ctx is None or not ctx.interpret)
-            and jax.default_backend() == "tpu"):
-        from jax.experimental.pallas.ops.tpu.flash_attention import (
-            BlockSizes as _FlashBlocks,
-            flash_attention as _flash,
-        )
+            and sq == k.shape[2] and q.dtype == jnp.bfloat16
+            and d % 8 == 0 and d <= 128 and nh % n_kv == 0
+            and not (ctx is not None and ctx.plain)
+            and jax.default_backend() == "gpu"):
+        out = jax.nn.dot_product_attention(
+            q, k.transpose(0, 2, 1, 3).astype(q.dtype),
+            v.transpose(0, 2, 1, 3).astype(q.dtype), scale=float(scale),
+            is_causal=True, implementation="cudnn")
+        return out.astype(q.dtype)
 
-        def _blk(n, cap):
-            for c in (cap, 512, 256, 128):
-                if c <= cap and n % c == 0:
-                    return c
-            return min(n, 128)
-
-        # measured at (1, 32, 1024, 128): default blocks 470 us, (q256,
-        # k1024) 87 us — the default leaves the kernel grid-overhead-bound
-        bs = _FlashBlocks(block_q=_blk(sq, 256),
-                          block_k_major=_blk(sq, 1024),
-                          block_k=_blk(sq, 1024), block_b=1)
-        qh = q.transpose(0, 2, 1, 3).astype(jnp.bfloat16)   # (B, H, S, D)
-        out = _flash(qh, k.astype(jnp.bfloat16), v.astype(jnp.bfloat16),
-                     causal=True, sm_scale=float(scale), block_sizes=bs)
-        return out.transpose(0, 2, 1, 3).astype(q.dtype)
+    if n_kv != nh:
+        rep = nh // n_kv
+        k = jnp.repeat(k, rep, axis=1)
+        v = jnp.repeat(v, rep, axis=1)
 
     # (B, nh, Sq, Sk)
     scores = jnp.einsum("bqhd,bhkd->bhqk", q, k, preferred_element_type=jnp.float32)
@@ -592,67 +469,43 @@ def cached_attention(
 ) -> jax.Array:
     """Attention over an (already-updated) KVCache/QuantKVCache.
 
-    Dispatches between the fused Pallas flash-decode kernel (single-query
-    steps on shapes the kernel tiles) and the XLA einsum fallback.  The
-    kernel folds cache-fill validity and the continuous-batching key mask
-    into one additive bias, so both paths are numerically interchangeable
-    (tests assert parity).
+    Single-query steps go through kernels/decode_attention.py (its Triton
+    kernel where kernels.route.use_kernel says so and the shape fits, else
+    its plain route), with cache fill validity, the continuous-batching key
+    mask and the sliding window folded into one additive bias.  Multi-token
+    steps take the einsum over the dequantized cache.
     """
     from smoothquant_tpu.kernels import decode_attention as da
-
-    if isinstance(cache, SMajorQuantKVCache):
-        # non-scan call sites (prefill, CPU fallback): einsum over the
-        # dequantized view; the decode scan reaches the S-major kernel via
-        # stacked_smajor_attention
-        return attention(q, *cache.read(), causal_offset=causal_offset,
-                         valid_len=cache.pos, scale=scale,
-                         attn_mask=attn_mask, sliding_window=sliding_window)
 
     b, sq, nh, d = q.shape
     quant = isinstance(cache, QuantKVCache)
     kbuf = cache.k_q if quant else cache.k
     n_kv, s = kbuf.shape[1], kbuf.shape[2]
-
-    mode = ctx.attn if ctx is not None else "auto"
-    interpret = bool(ctx is not None and ctx.interpret)
-    # auto: the fused kernel wins where it avoids HBM round-trips — the int8
-    # cache, whose einsum path materializes a dequantized bf16 copy (measured
-    # 1.3x on-chip); for bf16 caches XLA's einsum is already at bandwidth, so
-    # auto keeps it and "kernel" remains an explicit override
-    use_kernel = (
-        mode != "einsum"
-        and sq == 1
-        and da.supported(s, nh, n_kv, d)
-        and (mode == "kernel" or quant)
-        and (mode == "kernel" or interpret or jax.default_backend() == "tpu")
-    )
-    if use_kernel:
+    if sq == 1:
         valid = jnp.broadcast_to(jnp.asarray(cache.pos, jnp.int32), (b,))
-        col = jax.lax.broadcasted_iota(jnp.int32, (b, s), 1)
-        ok = col < valid[:, None]
-        if sliding_window is not None:
-            # single-token decode: the query sits at absolute position
-            # causal_offset; only keys in (pos - W, pos] stay visible
-            qpos = jnp.broadcast_to(
-                jnp.asarray(causal_offset, jnp.int32), (b,))
-            ok = jnp.logical_and(ok, col > qpos[:, None] - sliding_window)
-        if attn_mask is not None:
-            ok = jnp.logical_and(ok, attn_mask.astype(bool))
-        bias = jnp.where(ok, 0.0, da.NEG_INF).astype(jnp.float32)
-        if quant:
-            out = da.decode_attention(
-                q[:, 0], cache.k_q, cache.v_q, bias,
-                cache.k_scale, cache.v_scale,
-                sm_scale=scale, interpret=interpret)
-        else:
-            out = da.decode_attention(
-                q[:, 0], cache.k, cache.v, bias,
-                sm_scale=scale, interpret=interpret)
+        bias = decode_bias(valid - 1, b, s, attn_mask, sliding_window,
+                           qpos=causal_offset)
+        out = da.decode_attention(
+            q[:, 0], kbuf, cache.v_q if quant else cache.v, bias,
+            cache.k_scale if quant else None,
+            cache.v_scale if quant else None, sm_scale=scale,
+            **attention_route(ctx, s, nh, n_kv, d))
         return out[:, None]
 
     return attention(q, *cache.read(), causal_offset=causal_offset,
                      valid_len=cache.pos, scale=scale, attn_mask=attn_mask,
                      sliding_window=sliding_window)
+
+
+def attention_route(ctx, s: int, nh: int, n_kv: int, d: int) -> dict:
+    """kernel/interpret flags for kernels.decode_attention at this shape."""
+    from smoothquant_tpu.kernels import decode_attention as da
+    from smoothquant_tpu.kernels.route import use_kernel
+
+    interpret = bool(ctx is not None and ctx.interpret)
+    kernel = (da.supported(s, nh, n_kv, d)
+              and use_kernel(interpret, bool(ctx is not None and ctx.plain)))
+    return {"kernel": kernel, "interpret": interpret}
 
 
 def unembed(x: jax.Array, embedding: jax.Array) -> jax.Array:
@@ -665,211 +518,107 @@ def unembed(x: jax.Array, embedding: jax.Array) -> jax.Array:
 
 # ---------------------------------------------------------------------------
 # Shared prefetch-scan decode machinery (per-arch _prefetch_scan_decode
-# bodies in models/llama.py, models/opt.py build on these)
+# bodies in models/llama.py, opt.py, falcon.py, bloom.py, mixtral.py)
 # ---------------------------------------------------------------------------
 
 
-def prefetch_tree_capable(stacked, ctx, caches, s: int,
-                          allow_smajor: bool = False) -> bool:
-    """Generic gate for the no-copy scalar-prefetch scan decode: single
-    token, aligned stacked cache, no taps/TP, and every projection either a
-    tile-aligned nibble PackedLinear or a transposed-fp ("weight_t") dict.
-    Arch modules add their own shape/attention checks on top.
-    allow_smajor: only archs whose scan body dispatches the batched-head
-    S-major attention (llama-family) pass True — others decline the
-    S-major cache here and take the generic (einsum-fallback) path."""
+def prefetch_tree_capable(stacked, ctx, caches, s: int) -> bool:
+    """Gate for the no-copy scan decode: single token, a stacked cache, no
+    taps/TP/EP, and every projection a nibble PackedLinear or a
+    transposed-fp ("weight_t") dict.  The weights and the cache ride the
+    scan loop-invariant and each layer's kernels read layer i in place."""
     from smoothquant_tpu.kernels.pack import PackedLinear
 
     # NB: KVCache/QuantKVCache are NamedTuples — a plain tuple check would
     # reject every cache; a stacked cache is recognized by its pos field
     if s != 1 or caches is None or not hasattr(caches, "pos"):
         return False
-    if isinstance(caches, SMajorQuantKVCache) and not allow_smajor:
-        return False
     if ctx is not None and (ctx.taps is not None or ctx.tp_axis is not None
-                            or ctx.ep_axis is not None
-                            or ctx.attn == "einsum"):
+                            or ctx.ep_axis is not None):
         return False
     if stacked is None or not isinstance(stacked, dict):
         return False
     if caches.pos.ndim not in (1, 2):
         # (L,) aligned or (L, B) per-slot stacked positions; per-slot rides
-        # the same scan — the writer kernel takes (B,) positions and
-        # validity rides the per-row (B, S) decode bias
+        # the same scan — validity rides the per-row (B, S) decode bias
         return False
     sa = stacked.get("self_attn", stacked.get("self_attention", {}))
     qp = sa.get("qkv_proj", sa.get("query_key_value", sa.get("q_proj")))
     if isinstance(qp, dict) and "weight_t" in qp:
-        # transposed-fp tree: every linear must be weight_t and tileable —
-        # the stacked kernel cannot pad loop-invariant weights in-jit
-        def _lins(node):
-            if isinstance(node, dict) and "weight_t" in node:
-                yield node
-            elif isinstance(node, dict):
-                for v in node.values():
-                    yield from _lins(v)
-
-        for lin in _lins(stacked):
-            _, k_w, o = lin["weight_t"].shape
-            if k_w % 8 or o % 128:
-                return False
-    elif isinstance(qp, PackedLinear) and qp.meta.nibble:
+        return True
+    if isinstance(qp, PackedLinear) and qp.meta.nibble:
         if ctx is None or ctx.compute not in ("auto", "int"):
             return False
-        # every stacked leaf must be tile-aligned (pack with
-        # align_k_groups=8, align_o)
-        for leaf in jax.tree.leaves(
-                stacked, is_leaf=lambda n: isinstance(n, PackedLinear)):
-            if not isinstance(leaf, PackedLinear):
-                continue
-            m = leaf.meta
-            if not m.nibble or (m.k_ns // (2 * m.group_size)) % 8:
-                return False
-            if leaf.w_qt.shape[-1] % 256:
-                return False
-    else:
-        return False
-    return True
+        return all(leaf.meta.nibble for leaf in jax.tree.leaves(
+            stacked, is_leaf=lambda n: isinstance(n, PackedLinear))
+            if isinstance(leaf, PackedLinear))
+    return False
 
 
-def stacked_cache_append(cache, i, k_new, v_new):
+def stacked_cache_append(cache, i, k_new, v_new, cos=None, sin=None,
+                         rotate_k: bool = False):
     """Write one decode position's K/V into layer i of a STACKED cache at
-    its current fill position.  k_new/v_new: (B, 1, H_kv, D) model layout.
+    its current fill position.  k_new/v_new: (B, 1, H_kv, D) model layout,
+    k PRE-rotary when rotate_k (cos/sin: this position's rotary tables).
     pos may be (L,) aligned or (L, B) per-slot (continuous batching) —
     per-slot rows each land at their own position.  Returns (cache, pos_i)."""
+    from smoothquant_tpu.kernels.cache_write import (put_rows,
+                                                     write_quant_cache_stacked)
+
     pos_i = cache.pos[i]
-    k_hm = k_new.transpose(0, 2, 1, 3)   # (B, H_kv, 1, D)
-    v_hm = v_new.transpose(0, 2, 1, 3)
-
-    def put4(buf, new):
-        # buf (L, B, H, S, D), new (B, H, 1, D)
-        if pos_i.ndim == 0:
-            return jax.lax.dynamic_update_slice(
-                buf, new[None].astype(buf.dtype), (i, 0, 0, pos_i, 0))
-        layer = jax.lax.dynamic_index_in_dim(buf, i, axis=0, keepdims=False)
-        layer = jax.vmap(lambda bl, nl, p: jax.lax.dynamic_update_slice(
-            bl, nl.astype(bl.dtype), (0, p, 0)))(layer, new, pos_i)
-        return jax.lax.dynamic_update_index_in_dim(buf, layer, i, axis=0)
-
-    def put3(buf, new):
-        # buf (L, B, H, S), new (B, H, 1)
-        if pos_i.ndim == 0:
-            return jax.lax.dynamic_update_slice(
-                buf, new[None].astype(buf.dtype), (i, 0, 0, pos_i))
-        layer = jax.lax.dynamic_index_in_dim(buf, i, axis=0, keepdims=False)
-        layer = jax.vmap(lambda bl, nl, p: jax.lax.dynamic_update_slice(
-            bl, nl.astype(bl.dtype), (0, p)))(layer, new, pos_i)
-        return jax.lax.dynamic_update_index_in_dim(buf, layer, i, axis=0)
-
+    b, _, h, d = k_new.shape
     if isinstance(cache, QuantKVCache):
-        kq, ks = QuantKVCache._quantize(k_hm)
-        vq, vs = QuantKVCache._quantize(v_hm)
-        cache = cache._replace(
-            k_q=put4(cache.k_q, kq), v_q=put4(cache.v_q, vq),
-            k_scale=put3(cache.k_scale, ks), v_scale=put3(cache.v_scale, vs),
-        )
-    else:
-        cache = cache._replace(
-            k=put4(cache.k, k_hm), v=put4(cache.v, v_hm),
-        )
-    return cache, pos_i
-
-
-def stacked_cache_append_fused(cache, i, k_new, v_new, cos, sin, ctx,
-                               rotate_k: bool = True):
-    """stacked_cache_append with the fused Pallas cache writer for INT8
-    caches: rotary-k + quantize + in-place row write in ONE kernel call
-    (the XLA chain was ~17 us/layer of serialized tiny ops).  k_new/v_new:
-    (B, 1, H_kv, D) model layout, k PRE-rotary when rotate_k.  Falls back
-    to apply_rotary + stacked_cache_append for fp caches."""
-    if isinstance(cache, SMajorQuantKVCache):
-        from smoothquant_tpu.kernels.attn_smajor import (
-            write_quant_cache_smajor,
-        )
-
-        b, s1, h, d = k_new.shape
-        if cos is None:
-            cos = sin = jnp.zeros((b, 1, d), jnp.float32)
-        pos_i = cache.pos[i]
-        interp = bool(ctx is not None and ctx.interpret)
-        kq, vq, ks, vs = write_quant_cache_smajor(
-            i, pos_i, k_new.reshape(b, h, d), v_new.reshape(b, h, d),
-            cos, sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale,
-            rotary=rotate_k, interpret=interp)
-        return cache._replace(k_q=kq, v_q=vq, k_scale=ks, v_scale=vs), pos_i
-    if isinstance(cache, QuantKVCache):
-        from smoothquant_tpu.kernels.cache_write import (
-            write_quant_cache_stacked,
-        )
-
-        b, s1, h, d = k_new.shape
         if cos is None:  # non-rotary arch: dummy (ignored) tables
             cos = sin = jnp.zeros((b, 1, d), jnp.float32)
-        pos_i = cache.pos[i]
-        interp = bool(ctx is not None and ctx.interpret)
         kq, vq, ks, vs = write_quant_cache_stacked(
             i, pos_i, k_new.reshape(b, h, d), v_new.reshape(b, h, d),
             cos, sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale,
-            rotary=rotate_k, interpret=interp)
+            rotary=rotate_k)
         return cache._replace(k_q=kq, v_q=vq, k_scale=ks, v_scale=vs), pos_i
     if rotate_k:
         k_new = apply_rotary(k_new, cos, sin)
-    return stacked_cache_append(cache, i, k_new, v_new)
+    k = put_rows(cache.k, k_new[:, 0], i, pos_i, 3)
+    v = put_rows(cache.v, v_new[:, 0], i, pos_i, 3)
+    return cache._replace(k=k, v=v), pos_i
 
 
 def decode_bias(pos_i, b: int, s_max: int, attn_mask,
-                sliding_window: Optional[int] = None) -> jax.Array:
+                sliding_window: Optional[int] = None,
+                qpos=None) -> jax.Array:
     """(B, S_max) additive f32 bias for single-token decode: 0 on valid key
-    positions (< pos_i + 1, minus attn_mask holes, minus keys that fell out
-    of a sliding window), -inf elsewhere.  pos_i: () aligned or (B,)
-    per-slot positions."""
+    positions (<= pos_i, minus attn_mask holes, minus keys that fell out
+    of a sliding window), NEG_INF elsewhere.  pos_i: () aligned or (B,)
+    per-slot positions of the decoded token; qpos (default pos_i): its
+    absolute position for the window."""
     from smoothquant_tpu.kernels import decode_attention as da
 
-    pos_i = jnp.asarray(pos_i)
-    if pos_i.ndim == 1:
-        pos_i = pos_i[:, None]
+    pos_i = jnp.broadcast_to(jnp.asarray(pos_i, jnp.int32).reshape(-1),
+                             (b,))[:, None]
     col = jax.lax.broadcasted_iota(jnp.int32, (b, s_max), 1)
-    ok = col < pos_i + 1
+    ok = col <= pos_i
     if sliding_window is not None:
-        # the query decodes at absolute position pos_i: keys (pos_i - W, pos_i]
-        ok = jnp.logical_and(ok, col > pos_i - sliding_window)
+        qp = pos_i if qpos is None else jnp.broadcast_to(
+            jnp.asarray(qpos, jnp.int32).reshape(-1), (b,))[:, None]
+        # the query decodes at absolute position qp: keys (qp - W, qp]
+        ok = jnp.logical_and(ok, col > qp - sliding_window)
     if attn_mask is not None:
         ok = jnp.logical_and(ok, attn_mask.astype(bool))
     return jnp.where(ok, 0.0, da.NEG_INF).astype(jnp.float32)
 
 
-def stacked_smajor_attention(cache, i, q_bhd, bias, ctx, sm_scale=None):
-    """Layer-i decode attention over a stacked S-MAJOR int8 cache via the
-    batched-head kernel (kernels/attn_smajor.py).  q_bhd: (B, H, D) POST-
-    rotary; returns (B, H, D)."""
-    from smoothquant_tpu.kernels.attn_smajor import (
-        decode_attention_smajor_stacked,
-    )
-
-    idx = jnp.asarray(i, jnp.int32).reshape(1)
-    interp = bool(ctx is not None and ctx.interpret)
-    return decode_attention_smajor_stacked(
-        idx, q_bhd, cache.k_q, cache.v_q, bias,
-        cache.k_scale, cache.v_scale,
-        sm_scale=sm_scale, interpret=interp)
-
-
 def stacked_flash_attention(cache, i, q_bhd, bias, ctx, sm_scale=None,
                             alibi_slopes=None):
-    """Layer-i decode attention over a stacked (quant or fp) cache via the
-    scalar-prefetch flash kernel.  q_bhd: (B, H, D); returns (B, H, D).
-    sm_scale=1.0 for archs that pre-scale q (OPT folds 1/sqrt(d) into the
-    projection, reference opt.py:63-66).  alibi_slopes: (H,) per-head
-    ALiBi slopes (Bloom)."""
+    """Layer-i decode attention over a stacked (quant or fp) cache.
+    q_bhd: (B, H, D); returns (B, H, D).  sm_scale=1.0 for archs that
+    pre-scale q (OPT folds 1/sqrt(d) into the projection, reference
+    opt.py:63-66).  alibi_slopes: (H,) per-head ALiBi slopes (Bloom)."""
     from smoothquant_tpu.kernels import decode_attention as da
 
-    idx = jnp.asarray(i, jnp.int32).reshape(1)
-    interp = bool(ctx is not None and ctx.interpret)
-    if isinstance(cache, QuantKVCache):
-        return da.decode_attention_stacked(
-            idx, q_bhd, cache.k_q, cache.v_q, bias,
-            cache.k_scale, cache.v_scale, alibi_slopes,
-            sm_scale=sm_scale, interpret=interp)
+    quant = isinstance(cache, QuantKVCache)
+    k = cache.k_q if quant else cache.k
+    v = cache.v_q if quant else cache.v
+    b, h, d = q_bhd.shape
     return da.decode_attention_stacked(
-        idx, q_bhd, cache.k, cache.v, bias, None, None, alibi_slopes,
-        sm_scale=sm_scale, interpret=interp)
+        i, q_bhd, k, v, bias, cache.k_scale if quant else None,
+        cache.v_scale if quant else None, alibi_slopes, sm_scale=sm_scale,
+        **attention_route(ctx, k.shape[3], h, k.shape[2], d))

@@ -226,7 +226,7 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
     from smoothquant_tpu.models.common import (
         QuantKVCache,
         decode_bias,
-        stacked_cache_append_fused,
+        stacked_cache_append,
         stacked_flash_attention,
     )
 
@@ -259,8 +259,8 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
         q, k, v = _split_qkv(fused, cfg)
         q = apply_rotary(q, cos, sin)    # k-rotary fuses into the writer
 
-        cache, pos_i = stacked_cache_append_fused(cache, i, k, v, cos, sin,
-                                                  ctx)
+        cache, pos_i = stacked_cache_append(cache, i, k, v, cos, sin,
+                                            rotate_k=True)
         bias = decode_bias(pos_i, b, s_max, attn_mask)
         a = stacked_flash_attention(cache, i, q[:, 0], bias, ctx)
         a = a[:, None].reshape(b, s, nh * d)
@@ -296,18 +296,10 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
 
 
 def _prefetch_capable(params, cfg, ctx, caches, s: int) -> bool:
-    from smoothquant_tpu.kernels import decode_attention as da
-    from smoothquant_tpu.models.common import (
-        QuantKVCache,
-        prefetch_tree_capable,
-    )
+    from smoothquant_tpu.models.common import prefetch_tree_capable
 
-    if not prefetch_tree_capable(params["layers"].get("stacked"), ctx,
-                                 caches, s):
-        return False
-    kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
-    return da.supported(kbuf.shape[3], cfg.num_attention_heads,
-                        cfg.effective_kv_heads, cfg.head_dim)
+    return prefetch_tree_capable(params["layers"].get("stacked"), ctx,
+                                 caches, s)
 
 
 def forward(

@@ -248,31 +248,18 @@ def stack_layers(params: dict, cfg: LlamaConfig) -> dict:
 
 def stacked_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype,
                    pos: int = 0, quant_kv: bool = False,
-                   per_slot: bool = False, smajor: bool = False):
+                   per_slot: bool = False):
     """A scan-ready KV cache: every field carries a leading layers axis.
 
-    quant_kv=True builds the INT8 cache (half the HBM read per step; the
-    fused decode-attention kernel consumes the int8 bytes directly).
+    quant_kv=True builds the INT8 cache (half the bytes read per step; the
+    decode-attention kernel consumes the int8 bytes directly).
     per_slot=True gives pos shape (L, B) — each batch slot tracks its own
-    fill position (continuous batching over the prefetch-scan path).
-    smajor=True (int8 only) uses the S-major value layout consumed by the
-    batched-head attention kernel (kernels/attn_smajor.py)."""
-    from smoothquant_tpu.models.common import (QuantKVCache,
-                                               SMajorQuantKVCache)
+    fill position (continuous batching over the prefetch-scan path)."""
+    from smoothquant_tpu.models.common import QuantKVCache
 
     n_layers = cfg.num_hidden_layers
     pos_shape = (n_layers, batch) if per_slot else (n_layers,)
     poss = jnp.full(pos_shape, pos, jnp.int32)
-    if quant_kv and smajor:
-        n_kv, d = cfg.num_key_value_heads, cfg.head_dim
-        return SMajorQuantKVCache(
-            k_q=jnp.zeros((n_layers, batch, max_len, n_kv * d), jnp.int8),
-            v_q=jnp.zeros((n_layers, batch, max_len, n_kv * d), jnp.int8),
-            k_scale=jnp.zeros((n_layers, batch, n_kv, max_len), jnp.float32),
-            v_scale=jnp.zeros((n_layers, batch, n_kv, max_len), jnp.float32),
-            pos=poss,
-        )
-    assert not smajor, "smajor layout is int8-only (quant_kv=True)"
     shape = (n_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
     if quant_kv:
         return QuantKVCache(
@@ -286,196 +273,71 @@ def stacked_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype,
 
 
 def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
-    """Single-token decode over stacked PACKED layers without scan-slice
-    copies: weights and the KV cache stay loop-invariant / carried whole,
-    and the scalar-prefetch kernels (int4_group_matmul_stacked,
-    decode_attention_stacked) stream only layer i's blocks.  The naive
-    stacked scan dynamic-slices ~every packed byte into each pallas_call
-    operand — measured at ~2x the per-layer decode cost.
+    """Single-token decode over stacked PACKED (or transposed-fp) layers
+    without scan-slice copies: weights and the KV cache stay loop-invariant
+    / carried whole, and each layer's matmuls and attention read layer i of
+    the stacks in place (kernels/int4_group_matmul.py,
+    kernels/decode_attention.py).  A naive stacked scan would slice every
+    weight byte into each layer's operands.
     """
     from smoothquant_tpu.models.common import (
         QuantKVCache,
-        SMajorQuantKVCache,
         decode_bias,
-        stacked_cache_append_fused,
+        stacked_cache_append,
         stacked_flash_attention,
-        stacked_smajor_attention,
     )
 
     stacked = params["layers"]["stacked"]
     b, s, h = x.shape
     nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if isinstance(caches, SMajorQuantKVCache):
-        s_max = caches.k_q.shape[2]
-    else:
-        s_max = (caches.k_q if isinstance(caches, QuantKVCache)
-                 else caches.k).shape[3]
+    s_max = (caches.k_q if isinstance(caches, QuantKVCache)
+             else caches.k).shape[3]
 
     def norm_at(node, i):
         return {"weight": node["weight"][i]}
-
-    from smoothquant_tpu.kernels.real_linear import (
-        can_fuse_mlp,
-        can_fuse_norm,
-        real_mlp_fused,
-    )
-
-    fuse_norm_qkv = ("qkv_proj" in stacked["self_attn"]
-                     and can_fuse_norm(stacked["self_attn"]["qkv_proj"]))
-    fuse_norm_gu = ("gate_up_proj" in stacked["mlp"]
-                    and can_fuse_norm(stacked["mlp"]["gate_up_proj"]))
-    # OPT-IN (ctx.fuse_mlp): one Pallas call for the whole MLP (gate_up +
-    # SwiGLU + down).  Saves a launch + pipeline fill standalone, but the
-    # decode scan already hides those — measured slower in context
-    # (scripts/mlp_scan_probe.py), so it is not the default.
-    fuse_mlp = (fuse_norm_gu
-                and ctx is not None and ctx.fuse_mlp
-                and can_fuse_mlp(stacked["mlp"]["gate_up_proj"],
-                                 stacked["mlp"]["down_proj"], b * s))
-    # fused attention chain (k-rotary + KV quantize + cache write + flash
-    # attention in ONE kernel) for the aligned int8-cache decode; the
-    # unfused writer+bias+attention path remains for fp caches and masked
-    # (continuous-batching) decodes
-    from smoothquant_tpu.kernels.attn_fused import (
-        fused_rope_write_attn_stacked,
-        fused_virtual_attn_flat,
-        fused_virtual_attn_stacked,
-    )
-    from smoothquant_tpu.models.common import QuantKVCache as _QKV
-
-    attn_mode = ctx.fuse_attn if ctx is not None else "auto"
-    if isinstance(caches, SMajorQuantKVCache):
-        # S-major cache: batched-head attention (8 real heads per dot /
-        # softmax) — writer then kernel, validity rides the (B, S) bias
-        attn_mode = "smajor"
-    elif not (isinstance(caches, _QKV) and attn_mask is None
-              and caches.pos.ndim == 1):
-        # the virtual-tile kernels take one aligned scalar position; masked
-        # or per-slot (L, B) decodes ride the writer+bias+flash path, whose
-        # validity is the per-row (B, S) bias
-        attn_mode = "off"
-    # (L, 1, C) stacked norm rows, reshaped ONCE outside the scan: the
-    # in-body reshape forced a per-layer relayout copy of the whole stack
-    # (~2.4 us/layer each, profiled)
-    norm_in_rows = stacked["input_layernorm"]["weight"][:, None, :]
-    norm_post_rows = stacked["post_attention_layernorm"]["weight"][:, None, :]
-    if cfg.sliding_window is not None and attn_mode != "smajor":
-        # Mistral: the window mask is not folded into the virtual-tile
-        # kernels; the explicit decode_bias path carries it (the smajor
-        # branch already builds its bias via decode_bias)
-        attn_mode = "off"
 
     def body(carry, i):
         x, cache = carry
         sa, mlp = stacked["self_attn"], stacked["mlp"]
         residual = x
         nm = "model.layers.scan"
-        if "qkv_proj" in sa:  # fused: one kernel launch + one permute chain
-            if fuse_norm_qkv:
-                # norm folds into the act-prep kernel (shared basis)
-                # FULL stacked norm rows: the rawx kernel selects layer
-                # i's row via scalar prefetch (kills 3 dynamic-slice XLA
-                # ops per layer of decode-scan glue)
-                qkv = call_linear(
-                    sa["qkv_proj"], x, f"{nm}.qkv", ctx, layer_idx=i,
-                    norm=(norm_in_rows, cfg.rms_norm_eps, "rms"))
-            else:
-                hidden = rms_norm(norm_at(stacked["input_layernorm"], i), x,
-                                  cfg.rms_norm_eps)
-                qkv = call_linear(sa["qkv_proj"], hidden, f"{nm}.qkv", ctx,
-                                  layer_idx=i)
+        hidden = rms_norm(norm_at(stacked["input_layernorm"], i), x,
+                          cfg.rms_norm_eps)
+        if "qkv_proj" in sa:  # fused: one matmul + one quantize chain
+            qkv = call_linear(sa["qkv_proj"], hidden, f"{nm}.qkv", ctx,
+                              layer_idx=i)
             q_dim, kv_dim = nh * d, n_kv * d
             q = qkv[..., :q_dim]
             k = qkv[..., q_dim:q_dim + kv_dim]
             v = qkv[..., q_dim + kv_dim:]
             q, k, v = (maybe_quantize_output(t, ctx) for t in (q, k, v))
         else:
-            hidden = rms_norm(norm_at(stacked["input_layernorm"], i), x,
-                              cfg.rms_norm_eps)
             q = call_linear(sa["q_proj"], hidden, f"{nm}.q", ctx, True,
                             layer_idx=i)
             k = call_linear(sa["k_proj"], hidden, f"{nm}.k", ctx, True,
                             layer_idx=i)
             v = call_linear(sa["v_proj"], hidden, f"{nm}.v", ctx, True,
                             layer_idx=i)
-        flat_attn = attn_mode == "auto" and nh == n_kv
-        if not flat_attn:
-            q = apply_rotary(q.reshape(b, s, nh, d), cos, sin)
-        k = k.reshape(b, s, n_kv, d)      # k-rotary fuses into the writer
-        v = v.reshape(b, s, n_kv, d)
-
-        if flat_attn:
-            # MHA: flat pre-rotary q in, flat attention out — q-rotary and
-            # the rep pad/slice run IN the virtual-tile kernel (the XLA
-            # apply_rotary + pad + rep-slice chain was ~8 us/layer)
-            a = fused_virtual_attn_flat(
-                i, cache.pos[i], q, k[:, 0], v[:, 0], cos, sin,
-                cache.k_q, cache.v_q, cache.k_scale, cache.v_scale,
-                interpret=bool(ctx is not None and ctx.interpret))
-            cache, _ = stacked_cache_append_fused(cache, i, k, v, cos,
-                                                  sin, ctx)
-        elif attn_mode == "auto":
-            # virtual-tile attention over the OLD cache (rotary + quantize
-            # + bias in-kernel), then the aliased in-place writer — which
-            # attention never waits on (it only READS the old rows)
-            a = fused_virtual_attn_stacked(
-                i, cache.pos[i], q[:, 0], k[:, 0], v[:, 0], cos, sin,
-                cache.k_q, cache.v_q, cache.k_scale, cache.v_scale,
-                interpret=bool(ctx is not None and ctx.interpret))
-            cache, _ = stacked_cache_append_fused(cache, i, k, v, cos,
-                                                  sin, ctx)
-        elif attn_mode == "smajor":
-            cache, pos_i = stacked_cache_append_fused(cache, i, k, v, cos,
-                                                      sin, ctx)
-            bias = decode_bias(pos_i, b, s_max, attn_mask,
-                               cfg.sliding_window)
-            a = stacked_smajor_attention(cache, i, q[:, 0], bias, ctx)
-        elif attn_mode == "fused":
-            # one Pallas call: k-rotary + KV quantize + cache row write +
-            # flash attention (kernels/attn_fused.py) — replaces the
-            # writer kernel + bias glue + attention kernel
-            a, kq2, vq2, ks2, vs2 = fused_rope_write_attn_stacked(
-                i, cache.pos[i], q[:, 0], k[:, 0], v[:, 0], cos, sin,
-                cache.k_q, cache.v_q, cache.k_scale, cache.v_scale,
-                interpret=bool(ctx is not None and ctx.interpret))
-            cache = cache._replace(k_q=kq2, v_q=vq2, k_scale=ks2,
-                                   v_scale=vs2)
-        else:
-            cache, pos_i = stacked_cache_append_fused(cache, i, k, v, cos,
-                                                      sin, ctx)
-            bias = decode_bias(pos_i, b, s_max, attn_mask,
-                               cfg.sliding_window)
-            a = stacked_flash_attention(cache, i, q[:, 0], bias, ctx)
-        if not flat_attn:
-            a = a[:, None].reshape(b, s, nh * d)  # flat path: already flat
+        q = apply_rotary(q.reshape(b, s, nh, d), cos, sin)
+        # k-rotary fuses into the cache write
+        cache, pos_i = stacked_cache_append(
+            cache, i, k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d),
+            cos, sin, rotate_k=True)
+        bias = decode_bias(pos_i, b, s_max, attn_mask, cfg.sliding_window)
+        a = stacked_flash_attention(cache, i, q[:, 0], bias, ctx)
+        a = a[:, None].reshape(b, s, nh * d)
         x = residual + call_linear(sa["o_proj"], a, f"{nm}.o", ctx,
                                    layer_idx=i)
 
         residual = x
-        if fuse_mlp:
-            down = real_mlp_fused(
-                mlp["gate_up_proj"], mlp["down_proj"], x, layer_idx=i,
-                norm=(stacked["post_attention_layernorm"]["weight"][i],
-                      cfg.rms_norm_eps, "rms"),
-                interpret=bool(ctx is not None and ctx.interpret))
-            cache = cache._replace(pos=cache.pos.at[i].add(s))
-            return (residual + down, cache), None
-        if fuse_norm_gu:
-            gu = call_linear(
-                mlp["gate_up_proj"], x, f"{nm}.gu", ctx, layer_idx=i,
-                norm=(norm_post_rows, cfg.rms_norm_eps, "rms"))
-            inter = gu.shape[-1] // 2
-            gate, up = gu[..., :inter], gu[..., inter:]
-        elif "gate_up_proj" in mlp:
-            hidden = rms_norm(norm_at(stacked["post_attention_layernorm"],
-                                      i), x, cfg.rms_norm_eps)
+        hidden = rms_norm(norm_at(stacked["post_attention_layernorm"], i), x,
+                          cfg.rms_norm_eps)
+        if "gate_up_proj" in mlp:
             gu = call_linear(mlp["gate_up_proj"], hidden, f"{nm}.gu", ctx,
                              layer_idx=i)
             inter = gu.shape[-1] // 2
             gate, up = gu[..., :inter], gu[..., inter:]
         else:
-            hidden = rms_norm(norm_at(stacked["post_attention_layernorm"],
-                                      i), x, cfg.rms_norm_eps)
             gate = call_linear(mlp["gate_proj"], hidden, f"{nm}.g", ctx,
                                layer_idx=i)
             up = call_linear(mlp["up_proj"], hidden, f"{nm}.u", ctx,
@@ -491,25 +353,10 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
 
 
 def _prefetch_capable(params, cfg, ctx, caches, s: int) -> bool:
-    from smoothquant_tpu.kernels import decode_attention as da
-    from smoothquant_tpu.models.common import (
-        QuantKVCache,
-        SMajorQuantKVCache,
-        prefetch_tree_capable,
-    )
+    from smoothquant_tpu.models.common import prefetch_tree_capable
 
-    if not prefetch_tree_capable(params["layers"].get("stacked"), ctx,
-                                 caches, s, allow_smajor=True):
-        return False
-    if isinstance(caches, SMajorQuantKVCache):
-        from smoothquant_tpu.kernels import attn_smajor
-
-        return attn_smajor.supported(
-            caches.k_q.shape[2], cfg.num_attention_heads,
-            cfg.num_key_value_heads, cfg.head_dim)
-    kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
-    return da.supported(kbuf.shape[3], cfg.num_attention_heads,
-                        cfg.num_key_value_heads, cfg.head_dim)
+    return prefetch_tree_capable(params["layers"].get("stacked"), ctx,
+                                 caches, s)
 
 
 def forward(
@@ -703,12 +550,12 @@ def apply_shared_residual_basis(params: dict, cfg: LlamaConfig,
 
 def pack_fp_decode(params: dict, cfg: LlamaConfig) -> dict:
     """Prepare an UNQUANTIZED tree for the no-copy scan decode: fuse q/k/v
-    and gate/up, then store every projection transposed ((K, O), the MXU
+    and gate/up, then store every projection transposed ((K, O), the GEMM
     B-operand layout) under "weight_t" so call_linear routes it to
     kernels.fp_matmul.fp_matmul_stacked.  stack_layers() the result and
-    decode takes the same compile-once, no-slice-copy prefetch-scan path as
-    packed models — this is the honest bf16 baseline bench.py measures
-    against, and the fast path for serving unquantized models."""
+    decode takes the same compile-once, no-slice-copy scan decode as packed
+    models — the bf16 baseline bench.py measures against, and the fast path
+    for serving unquantized models."""
     params = fuse_projections(params, cfg)
 
     def tr(lin):
@@ -742,7 +589,7 @@ def quantize_params(
 ) -> dict:
     """Offline weight quantization of every attention/MLP projection.
 
-    The TPU equivalent of quantize_llama_like (fake_quant.py:464-561): all
+    The equivalent of quantize_llama_like (fake_quant.py:464-561): all
     seven projections per layer are weight-quantized; salient importance for
     each comes from input_feat (summed mean-abs calibration vectors) keyed by
     HF-style names.

@@ -206,8 +206,7 @@ def _moe_block_sparse(bp, x, cfg, layer_name, ctx, layer_idx=None,
 
     layer_idx / experts_flat: prefetch-scan decode — experts_flat carries
     (L*E, ...)-leading expert leaves (the (L, E) axes flattened) and expert
-    e of layer layer_idx streams via scalar-prefetch index
-    layer_idx*E + e, so the full MoE weight stack rides the scan without
+    e of layer layer_idx is read at index layer_idx*E + e, so the full MoE weight stack rides the scan without
     per-iteration slice copies.
     """
     b, s, h = x.shape
@@ -359,13 +358,13 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
     """Single-token decode over stacked PACKED layers without scan-slice
     copies — the Mixtral twin of llama._prefetch_scan_decode.  The MoE
     expert weights ride as (L*E, ...)-flattened loop-invariant stacks and
-    the scalar-prefetch kernels select (layer, expert) = layer*E + e, so
+    the matmuls read (layer, expert) = layer*E + e in place, so
     neither the attention nor the expert weights are ever slice-copied
     inside the scan."""
     from smoothquant_tpu.models.common import (
         QuantKVCache,
         decode_bias,
-        stacked_cache_append_fused,
+        stacked_cache_append,
         stacked_flash_attention,
     )
 
@@ -402,8 +401,8 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
         k = k.reshape(b, s, n_kv, d)      # k-rotary fuses into the writer
         v = v.reshape(b, s, n_kv, d)
 
-        cache, pos_i = stacked_cache_append_fused(cache, i, k, v, cos, sin,
-                                                  ctx)
+        cache, pos_i = stacked_cache_append(cache, i, k, v, cos, sin,
+                                            rotate_k=True)
         bias = decode_bias(pos_i, b, s_max, attn_mask)
         a = stacked_flash_attention(cache, i, q[:, 0], bias, ctx)
         a = a[:, None].reshape(b, s, nh * d)
@@ -425,21 +424,13 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, cos, sin, attn_mask):
 
 
 def _prefetch_capable(params, cfg, ctx, caches, s: int) -> bool:
-    from smoothquant_tpu.kernels import decode_attention as da
-    from smoothquant_tpu.models.common import (
-        QuantKVCache,
-        prefetch_tree_capable,
-    )
+    from smoothquant_tpu.models.common import prefetch_tree_capable
 
     stacked = params["layers"].get("stacked")
     if not prefetch_tree_capable(stacked, ctx, caches, s):
         return False
-    if "stacked" not in stacked.get("block_sparse_moe", {}).get(
-            "experts", {}):
-        return False
-    kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
-    return da.supported(kbuf.shape[3], cfg.num_attention_heads,
-                        cfg.num_key_value_heads, cfg.head_dim)
+    return "stacked" in stacked.get("block_sparse_moe", {}).get(
+        "experts", {})
 
 
 def forward(

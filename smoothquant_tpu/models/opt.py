@@ -234,12 +234,12 @@ def perm_fold_pairs(cfg: OPTConfig, fused: bool):
 def _prefetch_scan_decode(params, x, cfg, ctx, caches, attn_mask):
     """Single-token decode over stacked PACKED (or transposed-fp) layers
     without scan-slice copies — the OPT twin of llama._prefetch_scan_decode:
-    scalar-prefetch kernels stream only layer i's weight/KV tiles while the
+    the kernels read only layer i's weight/KV tiles while the
     stacks ride loop-invariant (see that function's docstring)."""
     from smoothquant_tpu.models.common import (
         QuantKVCache,
         decode_bias,
-        stacked_cache_append_fused,
+        stacked_cache_append,
         stacked_flash_attention,
     )
 
@@ -277,8 +277,7 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, attn_mask):
         k = k.reshape(b, s, nh, d)
         v = v.reshape(b, s, nh, d)
 
-        cache, pos_i = stacked_cache_append_fused(cache, i, k, v, None,
-                                                   None, ctx, rotate_k=False)
+        cache, pos_i = stacked_cache_append(cache, i, k, v)
         bias = decode_bias(pos_i, b, s_max, attn_mask)
         a = stacked_flash_attention(cache, i, q[:, 0], bias, ctx,
                                     sm_scale=1.0)
@@ -303,20 +302,12 @@ def _prefetch_scan_decode(params, x, cfg, ctx, caches, attn_mask):
 
 
 def _prefetch_capable(params, cfg, ctx, caches, s: int) -> bool:
-    from smoothquant_tpu.kernels import decode_attention as da
-    from smoothquant_tpu.models.common import (
-        QuantKVCache,
-        prefetch_tree_capable,
-    )
+    from smoothquant_tpu.models.common import prefetch_tree_capable
 
     if not cfg.do_layer_norm_before:
         return False  # post-LN (opt-350m) keeps the plain scan path
-    if not prefetch_tree_capable(params["layers"].get("stacked"), ctx,
-                                 caches, s):
-        return False
-    kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
-    return da.supported(kbuf.shape[3], cfg.num_attention_heads,
-                        cfg.num_attention_heads, cfg.head_dim)
+    return prefetch_tree_capable(params["layers"].get("stacked"), ctx,
+                                 caches, s)
 
 
 def forward(

@@ -64,12 +64,11 @@ class Int8Linear:
         return cls(w_q=jnp.asarray(w_q), bias=jnp.asarray(b),
                    alpha=jnp.asarray(alpha, jnp.float32))
 
-    def __call__(self, x_q: jax.Array, *, relu=False, out_dtype=jnp.float32,
-                 interpret=False) -> jax.Array:
+    def __call__(self, x_q: jax.Array, *, relu=False,
+                 out_dtype=jnp.float32) -> jax.Array:
         shape = x_q.shape
         y = int8_linear(x_q.reshape(-1, shape[-1]), self.w_q, self.alpha,
-                        self.bias, relu=relu, out_dtype=out_dtype,
-                        interpret=interpret)
+                        self.bias, relu=relu, out_dtype=out_dtype)
         return y.reshape(*shape[:-1], y.shape[-1])
 
 
@@ -162,7 +161,7 @@ def _per_batch(x):
     return x.reshape(-1, 1, 1, 1) if x.ndim == 1 else x
 
 
-def _int8_attention(q8, k8, v8, scales: dict, cfg: OPTConfig, interpret: bool,
+def _int8_attention(q8, k8, v8, scales: dict, cfg: OPTConfig,
                     causal_offset=0, valid_len=None, attn_mask=None):
     """int8 QK^T → fp32 softmax → ×127 int8 probs → int8 PV (opt.py:94-209).
 
@@ -183,7 +182,7 @@ def _int8_attention(q8, k8, v8, scales: dict, cfg: OPTConfig, interpret: bool,
     v3 = v8.reshape(b * nh, sk, d)
 
     alpha_qk = scales["q_output_scale"] * scales["k_output_scale"]
-    logits = int8_bmm(q3, k3, alpha_qk, out_dtype=jnp.float32, interpret=interpret)
+    logits = int8_bmm(q3, k3, alpha_qk, out_dtype=jnp.float32)
     logits = logits.reshape(b, nh, sq, sk)
 
     qi = jax.lax.broadcasted_iota(jnp.int32, (1, 1, sq, sk), 2)
@@ -201,13 +200,12 @@ def _int8_attention(q8, k8, v8, scales: dict, cfg: OPTConfig, interpret: bool,
     # PV contracts over keys: probs (B*nh, Sq, Sk) @ v (B*nh, Sk, d) — use
     # v^T layout for the (.., N, K) convention of int8_bmm
     ctx8 = int8_bmm(probs8, v3.transpose(0, 2, 1), alpha_pv,
-                    out_dtype=jnp.int8, interpret=interpret)
+                    out_dtype=jnp.int8)
     return ctx8.reshape(b, nh, sq, d).transpose(0, 2, 1, 3).reshape(b, sq, h)
 
 
 def forward(params: dict, input_ids: jax.Array, cfg: OPTConfig,
-            ctx=None, caches=None, positions=None, attn_mask=None,
-            interpret: bool = False):
+            ctx=None, caches=None, positions=None, attn_mask=None):
     """Int8 decoder forward (opt.py:259-426) with KV-cached decode.
 
     Same contract as the other model modules — (logits, caches) — so
@@ -216,8 +214,7 @@ def forward(params: dict, input_ids: jax.Array, cfg: OPTConfig,
     serving layer is ours).  caches: list of common.KVCache holding INT8
     k/v at the layer's static k/v output scales.
     """
-    if ctx is not None:
-        interpret = interpret or ctx.interpret
+    del ctx  # the int8 path has no recipe or route choice to thread
     b, s = input_ids.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
     x = jnp.take(params["embed_tokens"]["weight"], input_ids, axis=0).astype(jnp.float32)
@@ -238,11 +235,10 @@ def forward(params: dict, input_ids: jax.Array, cfg: OPTConfig,
         residual = x
         x2d = x.reshape(-1, x.shape[-1])
         h8 = layer_norm_q(x2d, lp.ln_attn_gamma, lp.ln_attn_beta,
-                          sc["attn_input_scale"], eps=cfg.layer_norm_eps,
-                          interpret=interpret).reshape(x.shape)
-        q8 = lp.q_proj(h8, out_dtype=jnp.int8, interpret=interpret)
-        k8 = lp.k_proj(h8, out_dtype=jnp.int8, interpret=interpret)
-        v8 = lp.v_proj(h8, out_dtype=jnp.int8, interpret=interpret)
+                          sc["attn_input_scale"], eps=cfg.layer_norm_eps).reshape(x.shape)
+        q8 = lp.q_proj(h8, out_dtype=jnp.int8)
+        k8 = lp.k_proj(h8, out_dtype=jnp.int8)
+        v8 = lp.v_proj(h8, out_dtype=jnp.int8)
         k4 = k8.reshape(b, s, nh, d)
         v4 = v8.reshape(b, s, nh, d)
         if caches is not None:
@@ -250,24 +246,23 @@ def forward(params: dict, input_ids: jax.Array, cfg: OPTConfig,
             offset = cache.pos
             cache = cache.update(k4, v4)
             ck, cv = cache.read()
-            ctx8 = _int8_attention(q8, ck, cv, sc, cfg, interpret,
+            ctx8 = _int8_attention(q8, ck, cv, sc, cfg,
                                    causal_offset=offset, valid_len=cache.pos,
                                    attn_mask=attn_mask)
             new_caches.append(cache)
         else:
             ctx8 = _int8_attention(q8, k4.transpose(0, 2, 1, 3),
                                    v4.transpose(0, 2, 1, 3), sc, cfg,
-                                   interpret, attn_mask=attn_mask)
-        attn_out = lp.out_proj(ctx8, out_dtype=jnp.float32, interpret=interpret)
+                                   attn_mask=attn_mask)
+        attn_out = lp.out_proj(ctx8, out_dtype=jnp.float32)
         x = residual + attn_out  # fp residual add (opt.py:298)
 
         residual = x
         x2d = x.reshape(-1, x.shape[-1])
         h8 = layer_norm_q(x2d, lp.ln_fc_gamma, lp.ln_fc_beta,
-                          sc["fc1_input_scale"], eps=cfg.layer_norm_eps,
-                          interpret=interpret).reshape(x.shape)
-        h8 = lp.fc1(h8, relu=True, out_dtype=jnp.int8, interpret=interpret)
-        ffn = lp.fc2(h8, out_dtype=jnp.float32, interpret=interpret)
+                          sc["fc1_input_scale"], eps=cfg.layer_norm_eps).reshape(x.shape)
+        h8 = lp.fc1(h8, relu=True, out_dtype=jnp.int8)
+        ffn = lp.fc2(h8, out_dtype=jnp.float32)
         x = residual + ffn
 
     if "final_layer_norm" in params:

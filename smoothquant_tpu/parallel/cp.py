@@ -1,12 +1,12 @@
-"""Context (sequence) parallelism: ring-attention prefill over an ICI ring.
+"""Context (sequence) parallelism: ring-attention prefill over a device ring.
 
 The reference has no sequence parallelism of any kind (SURVEY.md §2.9 —
 fixed 2048-token eval windows on one device).  Here long-context prefill
 shards the SEQUENCE axis across a `cp` mesh axis: every device holds an
 S/cp slice of the tokens, runs the full (replicated-weight) layer stack on
 its slice, and attention streams the K/V chunks around the ring with
-`jax.lax.ppermute` — the TPU-native equivalent of Ring Attention
-(blockwise streaming softmax; each hop rides one ICI neighbor link, and
+`jax.lax.ppermute` — Ring Attention (blockwise streaming softmax; each
+hop is one collective permute, which XLA hands to NCCL on the GPU, and
 XLA's latency-hiding scheduler overlaps the next hop's permute with the
 current chunk's attention math).
 
@@ -34,18 +34,13 @@ NEG_INF = -1e30
 
 def make_cp_mesh(cp: Optional[int] = None,
                  devices: Optional[Sequence] = None) -> Mesh:
-    """1-D (cp,) mesh; the ring rides ICI neighbors on real slices."""
+    """1-D (cp,) mesh in jax.devices() order: the GPUs of a host are joined
+    all to all by NVLink, so every ring order is as good as another."""
     import numpy as np
-    from jax.experimental import mesh_utils
 
     devices = list(devices if devices is not None else jax.devices())
     cp = cp or len(devices)
-    devices = devices[:cp]
-    if any(d.platform == "cpu" for d in devices):
-        arr = np.array(devices)
-    else:
-        arr = mesh_utils.create_device_mesh((cp,), devices=devices)
-    return Mesh(arr, (CP_AXIS,))
+    return Mesh(np.array(devices[:cp]), (CP_AXIS,))
 
 
 def ring_attention(
@@ -86,7 +81,7 @@ def ring_attention(
 
     def chunk_scores(k_c, k_off, mask_c):
         # GQA heads repeat here, per chunk — the ring only ever moves the
-        # n_kv-head chunk, so ICI traffic is H_kv/H of the naive scheme
+        # n_kv-head chunk, so ring traffic is H_kv/H of the naive scheme
         if rep != 1:
             k_c = jnp.repeat(k_c, rep, axis=1)
         s = jnp.einsum("bhqd,bhkd->bhqk", qh, k_c.astype(jnp.float32),
@@ -102,7 +97,7 @@ def ring_attention(
         src = jnp.remainder(r - t, n)
         k_off = src * sl
         # issue next hop BEFORE the compute: independent of this chunk's
-        # math, so the scheduler overlaps the ICI transfer with it
+        # math, so the scheduler overlaps the transfer with it
         k_nx = jax.lax.ppermute(k_c, axis_name, perm)
         v_nx = jax.lax.ppermute(v_c, axis_name, perm)
         mask_nx = (None if mask_c is None

@@ -1,9 +1,10 @@
-"""Device mesh construction for TPU slices.
+"""Device mesh construction.
 
 The reference has no real parallelism (SURVEY.md §2.9 — only accelerate
 device_map layer placement).  Here parallel execution is first-class:
-a 2-D (dp, tp) jax.sharding.Mesh where tp rides ICI within a slice and dp
-spans hosts/DCN.  All model-weight sharding specs live in sharding.py.
+a 2-D (dp, tp) jax.sharding.Mesh where tp spans the NVLink-joined GPUs of
+a host and dp spans replicas.  All model-weight sharding specs live in
+sharding.py.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ def make_mesh(
 ) -> Mesh:
     """Build a (dp, tp) mesh.
 
-    Defaults: tp = all devices, dp = 1.  Device order follows
-    mesh_utils.create_device_mesh so tp neighbors are ICI neighbors on real
-    slices.
+    Defaults: tp = all devices, dp = 1.  Devices are laid out in
+    jax.devices() order: the GPUs of a host are joined all to all by
+    NVLink, so the mesh follows the algorithm alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -37,10 +38,4 @@ def make_mesh(
         dp = n // tp
     if dp * tp != n:
         raise ValueError(f"dp*tp = {dp}*{tp} != {n} devices")
-    from jax.experimental import mesh_utils
-
-    if any(d.platform == "cpu" for d in devices):
-        arr = np.array(devices).reshape(dp, tp)
-    else:
-        arr = mesh_utils.create_device_mesh((dp, tp), devices=devices)
-    return Mesh(arr, (DP_AXIS, TP_AXIS))
+    return Mesh(np.array(devices).reshape(dp, tp), (DP_AXIS, TP_AXIS))

@@ -6,8 +6,8 @@ reference ppl_eval.py:70).  Here pipelining is a real schedule: the layer
 stack splits into `pp` contiguous stages (per-stage weights sharded over
 the mesh axis — the dominant memory), the batch splits into M
 microbatches, and a `lax.fori_loop` over M + pp - 1 ticks shifts
-activations stage-to-stage with `jax.lax.ppermute` (one ICI neighbor hop
-per tick).  Bubble fraction is (pp-1)/(M+pp-1) — raise `microbatches`
+activations stage-to-stage with `jax.lax.ppermute` (one collective
+permute per tick).  Bubble fraction is (pp-1)/(M+pp-1) — raise `microbatches`
 to amortize.
 
 SPMD shape: every device runs the same program; at tick t device s
@@ -24,7 +24,7 @@ stage weights), a single-token step flows stage-to-stage over pp ticks
 (microbatch = 1 — no intra-step overlap, correctness-first v1), and
 inactive stages keep their caches via a masked select.  Compatible with
 packed (real-kernel) params — stage weights are PackedLinears and run
-the Pallas int4/int8 path per stage.
+the packed int4/int8 path per stage.
 """
 
 from __future__ import annotations
@@ -43,18 +43,13 @@ PP_AXIS = "pp"
 
 def make_pp_mesh(pp: Optional[int] = None,
                  devices: Optional[Sequence] = None) -> Mesh:
-    """1-D (pp,) mesh; stage neighbors are ICI neighbors on real slices."""
+    """1-D (pp,) mesh in jax.devices() order: the GPUs of a host are joined
+    all to all by NVLink, so stage order needs no topology."""
     import numpy as np
-    from jax.experimental import mesh_utils
 
     devices = list(devices if devices is not None else jax.devices())
     pp = pp or len(devices)
-    devices = devices[:pp]
-    if any(d.platform == "cpu" for d in devices):
-        arr = np.array(devices)
-    else:
-        arr = mesh_utils.create_device_mesh((pp,), devices=devices)
-    return Mesh(arr, (PP_AXIS,))
+    return Mesh(np.array(devices[:pp]), (PP_AXIS,))
 
 
 def stack_pp_stages(params: dict, cfg, pp: int) -> dict:
@@ -223,7 +218,7 @@ def make_pp_forward(mod, cfg, mesh: Mesh, *, microbatches: int = 0,
 
             lm = local.get("lm_head")
             if v2:
-                # broadcast stage pp-1's hidden states (B*S*H over ICI —
+                # broadcast stage pp-1's hidden states (B*S*H over the interconnect —
                 # tiny next to a (V, H) weight replication), then every
                 # stage emits ITS V/pp logit slice; out_specs assembles
                 hs = jax.lax.psum(

@@ -1,7 +1,7 @@
 """Tensor-parallel partition specs for model params pytrees.
 
 Megatron-style TP over the `tp` mesh axis (all-reduce after o_proj/down_proj
-is inserted automatically by GSPMD from these layout annotations — the TPU
+is inserted automatically by GSPMD from these layout annotations — the
 equivalent of the NCCL layer the reference never had, SURVEY.md §2.9/§5.8):
 
   * column-parallel ("row"-sharded weight (out, in) → P(tp, None)):

@@ -212,7 +212,7 @@ def make_tp_decode_v2(mod, cfg, mesh, *, compute: str = "auto",
     Returns build(params) -> step(params, ids, caches) -> (logits, caches),
     where caches is a list of common.KVCache/QuantKVCache over GLOBAL head
     counts; shard_map splits them on the head axis so each device attends
-    over its local heads only (the north-star KV-cache-over-ICI sharding)
+    over its local heads only (the KV cache is sharded over the devices)
     and the packed linears run exactly as in make_tp_forward_v2.  The
     serving layer (Generator / ContinuousBatcher) can drive this step as a
     drop-in for the single-chip forward.

@@ -47,7 +47,7 @@ class Generator:
                  prefill_params=None, forward_fn=None):
         """prefill_params: optional second params tree used ONLY for prompt
         prefill — e.g. kernels.pack.promote_model_int8(params), whose
-        single-group int8 layout runs full-depth int8 MXU contractions
+        single-group int8 layout runs full-depth int8 GEMMs
         (prefill-optimal) while decode keeps the 4-bit nibble tree
         (bandwidth-optimal).
 

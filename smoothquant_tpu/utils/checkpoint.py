@@ -124,8 +124,6 @@ def load_packed_model(path: str) -> dict:
                 perm=jnp.asarray(node["perm"]),
                 ns_mask=(jnp.asarray(node["ns_mask"])
                          if "ns_mask" in node else None),
-                sal_select=(jnp.asarray(node["sal_select"])
-                            if "sal_select" in node else None),
                 meta=PackedMeta(**metas[key]),
             )
         if isinstance(node, dict):
@@ -270,8 +268,6 @@ def load_packed_model_sharded(dir_path: str, shard: int | None = None) -> dict:
                 perm=jnp.asarray(node["perm"]),
                 ns_mask=(jnp.asarray(node["ns_mask"])
                          if "ns_mask" in node else None),
-                sal_select=(jnp.asarray(node["sal_select"])
-                            if "sal_select" in node else None),
                 meta=PackedMeta(**metas[key]),
             )
         if isinstance(node, dict):

@@ -3,7 +3,7 @@
 The packed per-group scales may be stored bf16 in HBM (halving the scale
 bytes streamed per decode step; the reference stores fp16 scales —
 fake_quant.py keeps Q-DQ'd weights in the model dtype, so bf16 is the same
-precision class on TPU).  Contract: storage-only narrowing — every kernel
+precision class).  Contract: storage-only narrowing — every kernel
 casts the scale back to f32 before use, so the bf16-scale forward equals
 the f32-scale forward with scales ROUNDED THROUGH bf16 (bit-exactly), and
 stays within ~2^-8 relative of the full-f32 result.

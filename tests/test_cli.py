@@ -111,7 +111,7 @@ def test_export_int8_roundtrip(tiny_ckpt, tokens_file, tmp_path):
     cfg, int8_params = load_int8_opt(out_path)
     assert len(int8_params["int8_layers"]) == cfg.num_hidden_layers
     ids = np.random.default_rng(2).integers(0, 128, size=(1, 8))
-    logits, _ = opt_int8.forward(int8_params, jnp.asarray(ids), cfg, interpret=True)
+    logits, _ = opt_int8.forward(int8_params, jnp.asarray(ids), cfg)
     assert np.all(np.isfinite(np.asarray(logits)))
 
 

@@ -1,5 +1,5 @@
 """Transposed-fp (bf16-class) prefetch-scan decode: parity vs the plain
-per-layer forward.  This path is the honest baseline bench.py measures the
+per-layer forward.  This path is the baseline bench.py measures the
 quantized decode against, and the fast serving path for unquantized models
 (kernels/fp_matmul.py, models/llama.pack_fp_decode)."""
 
@@ -21,8 +21,7 @@ def test_fp_matmul_stacked_matches_dot():
     x = jnp.asarray(rng.normal(size=(n, k)), jnp.float32)
     w = jnp.asarray(rng.normal(size=(l_num, k, o)), jnp.float32)
     for i in range(l_num):
-        got = fp_matmul_stacked(jnp.asarray([i], jnp.int32), x, w,
-                                interpret=True)
+        got = fp_matmul_stacked(jnp.asarray([i], jnp.int32), x, w)
         ref = x @ w[i]
         np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                    rtol=1e-5, atol=1e-5)

@@ -9,9 +9,6 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from smoothquant_tpu.kernels.int4_group_matmul import (
-    int4_group_matmul_stacked_rawx,
-)
 from smoothquant_tpu.kernels.pack import pack_linear, unpack_nibbles_to_int8
 from smoothquant_tpu.kernels.real_linear import real_quant_linear
 from smoothquant_tpu.quant import w4a4_group
@@ -111,8 +108,7 @@ def test_model_decode_with_identity_o_proj():
     o_meta = packed["layers"]["0"]["self_attn"]["o_proj"].meta
     assert o_meta.layout == "identity"
 
-    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True,
-                         fuse_attn="off")
+    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True)
     prompt = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(2, 5)))
     caches = [QuantKVCache.create(2, 128, cfg.num_key_value_heads,
                                   cfg.head_dim, jnp.float32)

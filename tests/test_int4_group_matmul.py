@@ -1,4 +1,5 @@
-"""Nibble-packed int4 group matmul: pack roundtrip + kernel equivalence."""
+"""Nibble-packed int4 group matmul: the Triton kernel (interpret mode) vs
+the unpacked int8 route."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,8 @@ def rng():
 @pytest.mark.parametrize("n,o,k,gs", [
     (8, 256, 512, 64),
     (16, 128, 512, 128),
-    (8, 130, 384, 64),   # G=6, g_half=3 pads to 8; unaligned O
-    (8, 128, 256, 64),   # g_half=2 < 8: sublane-rule padding (ADVICE r1)
+    (8, 130, 384, 64),   # g_half=3: split-K tail; O not a block multiple
+    (8, 128, 256, 64),   # g_half=2
 ])
 def test_matches_unpacked_int_kernel(rng, n, o, k, gs):
     g = k // gs
@@ -33,11 +34,12 @@ def test_matches_unpacked_int_kernel(rng, n, o, k, gs):
     packed = native.pack_nibbles_split(w_qt)
     got = int4_group_matmul(
         jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(packed), jnp.asarray(ws),
-        jnp.asarray(x_sal), jnp.asarray(w_sal), group_size=gs, interpret=True,
+        jnp.asarray(x_sal), jnp.asarray(w_sal), group_size=gs, kernel=True,
+        interpret=True,
     )
     ref = int_group_matmul(
         jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(w_qt), jnp.asarray(ws),
-        jnp.asarray(x_sal), jnp.asarray(w_sal), group_size=gs, interpret=True,
+        jnp.asarray(x_sal), jnp.asarray(w_sal), group_size=gs,
     )
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-3, rtol=1e-4)
 
@@ -54,7 +56,7 @@ def test_negative_nibbles_sign_extend(rng):
     got = int4_group_matmul(
         jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(packed), jnp.asarray(ws),
         jnp.zeros((n, 128), jnp.float32), jnp.zeros((128, o), jnp.float32),
-        group_size=gs, interpret=True,
+        group_size=gs, kernel=True, interpret=True,
     )
     ref = (x_q.astype(np.int32) @ w_qt.astype(np.int32)).astype(np.float32)
     np.testing.assert_allclose(np.asarray(got), ref, atol=1e-2)
@@ -73,11 +75,11 @@ def test_no_salient_block(rng):
     packed = native.pack_nibbles_split(w_qt)
     got = int4_group_matmul(
         jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(packed), jnp.asarray(ws),
-        empty_x, empty_w, group_size=gs, interpret=True,
+        empty_x, empty_w, group_size=gs, kernel=True, interpret=True,
     )
     ref = int_group_matmul(
         jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(w_qt), jnp.asarray(ws),
-        empty_x, empty_w, group_size=gs, interpret=True,
+        empty_x, empty_w, group_size=gs,
     )
     expected = ((x_q.astype(np.int32).reshape(n, g, gs)[..., None]
                  * w_qt.astype(np.int32).reshape(g, gs, o)[None]).sum(2)
@@ -92,5 +94,5 @@ def test_half_group_alignment_guard(rng):
             jnp.zeros((4, 192), jnp.int8), jnp.zeros((4, 3), jnp.float32),
             jnp.zeros((96, 64), jnp.int8), jnp.zeros((3, 64), jnp.float32),
             jnp.zeros((4, 128), jnp.float32), jnp.zeros((128, 64), jnp.float32),
-            group_size=64, interpret=True,  # K/2=96 not divisible by 64
+            group_size=64, kernel=True, interpret=True,  # K/2=96 % 64 != 0
         )

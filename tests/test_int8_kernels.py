@@ -1,4 +1,4 @@
-"""INT8 GEMM + fused norm-quant kernel tests (interpret mode)."""
+"""INT8 GEMM + norm-quant tests (torch_int equivalents)."""
 
 import numpy as np
 import pytest
@@ -22,7 +22,7 @@ class TestInt8Linear:
         b = rng.normal(size=(o,)).astype(np.float32)
         alpha = 0.0123
         got = int8_linear(jnp.asarray(x), jnp.asarray(w), alpha,
-                          jnp.asarray(b), out_dtype=jnp.float32, interpret=True)
+                          jnp.asarray(b), out_dtype=jnp.float32)
         ref = x.astype(np.int32) @ w.astype(np.int32).T * alpha + b
         np.testing.assert_allclose(np.asarray(got), ref, atol=1e-3, rtol=1e-5)
 
@@ -33,7 +33,7 @@ class TestInt8Linear:
         w = rng.integers(-127, 128, size=(o, k)).astype(np.int8)
         alpha = 0.01
         got = int8_linear(jnp.asarray(x), jnp.asarray(w), alpha,
-                          out_dtype=jnp.int8, interpret=True)
+                          out_dtype=jnp.int8)
         ref = np.clip(np.round(x.astype(np.int32) @ w.astype(np.int32).T * alpha),
                       -127, 127).astype(np.int8)
         np.testing.assert_array_equal(np.asarray(got), ref)
@@ -46,7 +46,7 @@ class TestInt8Linear:
         b = rng.normal(size=(o,)).astype(np.float32) * 10
         alpha = 0.01
         got = int8_linear(jnp.asarray(x), jnp.asarray(w), alpha, jnp.asarray(b),
-                          relu=True, out_dtype=jnp.int8, interpret=True)
+                          relu=True, out_dtype=jnp.int8)
         pre = x.astype(np.int32) @ w.astype(np.int32).T * alpha + b
         ref = np.clip(np.round(np.maximum(pre, 0)), -127, 127).astype(np.int8)
         np.testing.assert_array_equal(np.asarray(got), ref)
@@ -57,7 +57,7 @@ class TestInt8Linear:
         x = rng.integers(-127, 128, size=(n, k)).astype(np.int8)
         w = rng.integers(-127, 128, size=(o, k)).astype(np.int8)
         got = int8_linear(jnp.asarray(x), jnp.asarray(w), 1.0,
-                          out_dtype=jnp.float32, interpret=True)
+                          out_dtype=jnp.float32)
         ref = x.astype(np.int32) @ w.astype(np.int32).T
         np.testing.assert_allclose(np.asarray(got), ref.astype(np.float32))
 
@@ -66,7 +66,7 @@ class TestInt8Linear:
         x = rng.integers(-5, 6, size=(n, k)).astype(np.int8)
         w = rng.integers(-5, 6, size=(o, k)).astype(np.int8)
         got = int8_linear(jnp.asarray(x), jnp.asarray(w), 1.0,
-                          out_dtype=jnp.float32, interpret=True)
+                          out_dtype=jnp.float32)
         ref = x.astype(np.int32) @ w.astype(np.int32).T
         np.testing.assert_allclose(np.asarray(got), ref.astype(np.float32))
 
@@ -79,7 +79,7 @@ class TestInt8BMM:
         bb = rng.integers(-127, 128, size=(b, n, k)).astype(np.int8)
         alpha = 0.005
         got = int8_bmm(jnp.asarray(a), jnp.asarray(bb), alpha,
-                       out_dtype=jnp.float32, interpret=True)
+                       out_dtype=jnp.float32)
         ref = np.einsum("bmk,bnk->bmn", a.astype(np.int32), bb.astype(np.int32)) * alpha
         np.testing.assert_allclose(np.asarray(got), ref, atol=1e-3, rtol=1e-5)
 
@@ -90,7 +90,7 @@ class TestInt8BMM:
         bb = rng.integers(-127, 128, size=(b, n, k)).astype(np.int8)
         alpha = 0.002
         got = int8_bmm(jnp.asarray(a), jnp.asarray(bb), alpha,
-                       out_dtype=jnp.int8, interpret=True)
+                       out_dtype=jnp.int8)
         ref = np.clip(np.round(
             np.einsum("bmk,bnk->bmn", a.astype(np.int32), bb.astype(np.int32)) * alpha
         ), -127, 127).astype(np.int8)
@@ -105,7 +105,7 @@ class TestNormQuant:
         b = rng.normal(size=(c,)).astype(np.float32)
         scale = 0.05
         got = layer_norm_q(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
-                           scale, interpret=True)
+                           scale)
         mean = x.mean(-1, keepdims=True)
         var = x.var(-1, keepdims=True)
         y = (x - mean) / np.sqrt(var + 1e-5) * g + b
@@ -118,7 +118,7 @@ class TestNormQuant:
         x = rng.normal(size=(n, c)).astype(np.float32)
         g = rng.normal(size=(c,)).astype(np.float32)
         scale = 0.02
-        got = rms_norm_q(jnp.asarray(x), jnp.asarray(g), scale, interpret=True)
+        got = rms_norm_q(jnp.asarray(x), jnp.asarray(g), scale)
         y = x / np.sqrt((x ** 2).mean(-1, keepdims=True) + 1e-6) * g
         ref = np.clip(np.round(y / scale), -127, 127).astype(np.int8)
         np.testing.assert_allclose(np.asarray(got), ref, atol=1)

@@ -1,4 +1,4 @@
-"""Int-compute group matmul kernel tests (interpret mode)."""
+"""Int-compute group matmul tests."""
 
 import numpy as np
 import pytest
@@ -33,7 +33,7 @@ class TestIntGroupMatmul:
         got = int_group_matmul(
             jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(w_q),
             jnp.asarray(ws), jnp.asarray(x_sal), jnp.asarray(w_sal),
-            group_size=gs, interpret=True,
+            group_size=gs,
         )
         ref = x_sal @ w_sal
         for gg in range(g):
@@ -52,7 +52,7 @@ class TestIntGroupMatmul:
         got = int_group_matmul(
             jnp.asarray(x_q), jnp.asarray(xs), jnp.asarray(w_q), jnp.asarray(ws),
             jnp.zeros((n, 128), jnp.float32), jnp.zeros((128, o), jnp.float32),
-            group_size=k, interpret=True,
+            group_size=k,
         )
         ref = (x_q.astype(np.int32) @ w_q.astype(np.int32)).astype(np.float32) * xs * ws
         np.testing.assert_allclose(np.asarray(got), ref, atol=1e-2, rtol=1e-4)

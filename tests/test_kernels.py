@@ -1,4 +1,4 @@
-"""Pallas kernel equivalence tests (interpret mode on CPU).
+"""Packed-linear equivalence tests (kernels in interpret mode on CPU).
 
 Each kernel must reproduce the quant/core simulation semantics in the packed
 (static-permutation) domain — the numerical contract of SURVEY.md §7 step 5.
@@ -35,7 +35,7 @@ class TestDualPathMatmul:
         got = dual_path_matmul(
             jnp.asarray(x_ns), jnp.asarray(x_sal), jnp.asarray(w_q.T),
             jnp.asarray(scales.T), jnp.asarray(w_sal.T),
-            group_size=g, interpret=True,
+            group_size=g,
         )
         w_deq = (w_q.astype(np.float32).reshape(o, -1, g)
                  * scales[..., None]).reshape(o, k_ns)
@@ -52,7 +52,7 @@ class TestDualPathMatmul:
         got = dual_path_matmul(
             jnp.asarray(x_ns), jnp.asarray(x_sal), jnp.asarray(w_q.T),
             jnp.asarray(scales.T), jnp.asarray(w_sal.T),
-            group_size=g, interpret=True,
+            group_size=g,
         )
         w_deq = (w_q.astype(np.float32).reshape(o, -1, g)
                  * scales[..., None]).reshape(o, k_ns)

@@ -58,7 +58,7 @@ def test_int8_forward_tracks_fp(exported):
     cfg, _, smoothed, int8_params, batches = exported
     ids = batches[0]
     fp_logits, _ = jopt.forward(smoothed, ids, cfg)
-    int8_logits, _ = opt_int8.forward(int8_params, ids, cfg, interpret=True)
+    int8_logits, _ = opt_int8.forward(int8_params, ids, cfg)
     fp_np, i8_np = np.asarray(fp_logits), np.asarray(int8_logits)
     assert np.all(np.isfinite(i8_np))
     # top-1 agreement on most positions: int8 is lossy but must track FP
@@ -69,10 +69,10 @@ def test_int8_forward_tracks_fp(exported):
 def test_int8_forward_is_causal(exported):
     cfg, _, _, int8_params, batches = exported
     ids = np.asarray(batches[0])
-    out_full = np.asarray(opt_int8.forward(int8_params, jnp.asarray(ids), cfg, interpret=True)[0])
+    out_full = np.asarray(opt_int8.forward(int8_params, jnp.asarray(ids), cfg)[0])
     ids_perturbed = ids.copy()
     ids_perturbed[0, -1] = (ids_perturbed[0, -1] + 1) % cfg.vocab_size
-    out_pert = np.asarray(opt_int8.forward(int8_params, jnp.asarray(ids_perturbed), cfg, interpret=True)[0])
+    out_pert = np.asarray(opt_int8.forward(int8_params, jnp.asarray(ids_perturbed), cfg)[0])
     # changing the last token must not change logits at earlier positions
     np.testing.assert_allclose(out_full[:, :-1], out_pert[:, :-1], atol=1e-5)
 
@@ -92,13 +92,12 @@ def test_int8_cached_decode_matches_teacher_forced(exported):
     # oracle: repeated teacher-forced full forward
     toks = list(prompt[0])
     for _ in range(4):
-        lg, _ = opt_int8.forward(int8_params, jnp.asarray([toks]), cfg,
-                                 interpret=True)
+        lg, _ = opt_int8.forward(int8_params, jnp.asarray([toks]), cfg)
         toks.append(int(np.asarray(lg)[0, -1].argmax()))
     expected = toks[prompt.shape[1]:]
 
     gen = Generator(opt_int8, int8_params, cfg, kv_dtype=jnp.int8,
-                    max_len=32, interpret=True)
+                    max_len=32)
     out = gen.generate(prompt, GenerationConfig(max_new_tokens=4))
     assert list(out[0, prompt.shape[1]:]) == expected
 
@@ -110,13 +109,13 @@ def test_int8_prefill_cache_consistent(exported):
 
     cfg, _, _, int8_params, batches = exported
     ids = np.asarray(batches[0])[:1, :7]
-    full, _ = opt_int8.forward(int8_params, jnp.asarray(ids), cfg, interpret=True)
+    full, _ = opt_int8.forward(int8_params, jnp.asarray(ids), cfg)
 
     caches = [KVCache.create(1, 16, cfg.num_attention_heads, cfg.head_dim,
                              jnp.int8) for _ in range(cfg.num_hidden_layers)]
     lg, caches = opt_int8.forward(int8_params, jnp.asarray(ids[:, :6]), cfg,
-                                  caches=caches, interpret=True)
+                                  caches=caches)
     lg2, _ = opt_int8.forward(int8_params, jnp.asarray(ids[:, 6:7]), cfg,
-                              caches=caches, interpret=True)
+                              caches=caches)
     np.testing.assert_allclose(np.asarray(lg2)[0, -1], np.asarray(full)[0, -1],
                                atol=1e-4, rtol=1e-4)

@@ -84,3 +84,17 @@ def test_group_shardable_guard():
         assert_group_shardable(4096, 4, 768)
     with pytest.raises(ValueError):
         assert_group_shardable(100, 8, 4)
+
+
+@pytest.mark.parametrize("kind", ["tp", "cp", "pp"])
+def test_meshes_follow_device_order(kind):
+    """GPUs of a host are joined all to all, so every mesh is laid out in
+    jax.devices() order (no topology-driven reordering)."""
+    from smoothquant_tpu.parallel.cp import make_cp_mesh
+    from smoothquant_tpu.parallel.pp import make_pp_mesh
+
+    devs = jax.devices()[:4]
+    mesh = {"tp": lambda: make_mesh(tp=2, dp=2, devices=devs),
+            "cp": lambda: make_cp_mesh(4, devices=devs),
+            "pp": lambda: make_pp_mesh(4, devices=devs)}[kind]()
+    assert list(mesh.devices.reshape(-1)) == devs

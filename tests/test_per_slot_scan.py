@@ -42,8 +42,7 @@ def test_per_slot_scan_matches_per_layer(packed_model, quant_kv):
     stacked per-slot scan and the per-layer loop start from the SAME cache
     state and must produce the same logits and cache writes."""
     cfg, qcfg, packed = packed_model
-    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True,
-                         fuse_attn="off")
+    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True)
     rng = np.random.default_rng(2)
     prompt = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(2, 5)))
 

@@ -1,5 +1,5 @@
-"""Prefetch-scan decode (stacked weights selected inside the kernels via
-scalar prefetch) must match the per-layer loop bit-for-bit-ish."""
+"""Prefetch-scan decode (stacked weights read at the layer index inside
+the scan) must match the per-layer loop bit-for-bit-ish."""
 
 import dataclasses
 
@@ -37,13 +37,7 @@ def test_prefetch_decode_matches_per_layer(packed_model, quant_kv):
     benign 1-ulp fusion-order differences accumulated during prefill into
     spurious mismatches on a chaotic random-weight model."""
     cfg, qcfg, packed = packed_model
-    # fuse_attn="off": this test pins BIT-LEVEL parity with the per-layer
-    # path; the fused attention kernel folds the new position into the
-    # streaming softmax last (f32-rounding reorder), which a chaotic
-    # random-weight model amplifies through int4 quantization boundaries.
-    # The fused path has its own parity tests in tests/test_attn_fused.py.
-    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True,
-                         fuse_attn="off")
+    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True)
     rng = np.random.default_rng(2)
     prompt = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(2, 5)))
 
@@ -73,11 +67,10 @@ def test_prefetch_decode_matches_per_layer(packed_model, quant_kv):
 
 
 def test_prefetch_gate_declines_gracefully(packed_model):
-    """Multi-token inputs and einsum-forced contexts take the regular
-    stacked-scan path (still correct, just the copying one)."""
+    """Multi-token inputs take the regular stacked-scan path (still
+    correct, just the copying one)."""
     cfg, qcfg, packed = packed_model
-    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True,
-                         attn="einsum")
+    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True)
     stacked = jllama.stack_layers(packed, cfg)
     scache = jllama.stacked_caches(cfg, 1, 128, jnp.float32)
     ids = jnp.asarray([[1, 2, 3]])

@@ -1,7 +1,7 @@
-"""Falcon / Bloom prefetch-scan decode (scalar-prefetch kernels, no
+"""Falcon / Bloom prefetch-scan decode (layer-indexed kernels, no
 scan-slice copies) must match the per-layer packed path — the twins of
 tests/test_prefetch_scan.py for the non-llama/OPT architectures.  Bloom
-additionally exercises the flash kernel's in-kernel ALiBi term."""
+additionally exercises the decode attention's ALiBi term."""
 
 import dataclasses
 

@@ -1,4 +1,4 @@
-"""Mixtral prefetch-scan decode: attention via scalar-prefetch kernels and
+"""Mixtral prefetch-scan decode: attention via layer-indexed kernels and
 MoE experts streamed through flattened (L*E, ...) stacks — must match the
 per-layer packed path for both dense and sparse dispatch."""
 

@@ -116,3 +116,39 @@ def test_promote_model_walks_tree():
     rel4 = np.linalg.norm(a4 - af) / np.linalg.norm(af)
     rel8 = np.linalg.norm(a8 - af) / np.linalg.norm(af)
     assert rel8 <= rel4 * 1.1, (rel8, rel4)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(fuse=True, fold_perms=True),            # pre_permuted down_proj
+    dict(shared_residual_basis=True),            # pre_permuted qkv/gate_up
+    dict(identity_keys=("o_proj",)),             # identity nibble o_proj
+])
+def test_promoted_model_tracks_nibble_model(opts):
+    """promote_model_int8 must keep the input order each pack expects: a
+    pre_permuted pack's input arrives in packed order and an identity pack's
+    in original order — scattering either by perm scrambles the channels."""
+    import dataclasses
+
+    from smoothquant_tpu.models import ForwardContext, llama as jllama
+    from smoothquant_tpu.models.registry import pack_model
+
+    cfg = dataclasses.replace(jllama.LlamaConfig.tiny(), hidden_size=128,
+                              intermediate_size=256)
+    params = jllama.init_params(jax.random.PRNGKey(3), cfg)
+    qcfg = w4a4_group(group_size=16, salient_prop=0.05)
+    rng = np.random.default_rng(4)
+    feat = {key: rng.uniform(0.1, 1.0, size=(
+        cfg.intermediate_size if "down_proj" in key else cfg.hidden_size,))
+        for _, key, _ in jllama.quantizable_linears(cfg)}
+    packed = pack_model("llama", params, cfg, qcfg, input_feat=feat,
+                        act_scales=feat, compute_dtype=jnp.float32,
+                        nibble=True, **opts)
+    ids = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(1, 12)))
+    ctx = ForwardContext(quant=qcfg)
+    w4, _ = jllama.forward(packed, ids, cfg, ctx=ctx)
+    w8, _ = jllama.forward(promote_model_int8(packed), ids, cfg, ctx=ctx)
+    w4, w8 = np.asarray(w4), np.asarray(w8)
+    # the int8 requantization and per-token activations move the logits a
+    # little; a scrambled channel order moves them as far as the logits go
+    rel = np.linalg.norm(w8 - w4) / np.linalg.norm(w4)
+    assert rel < 0.3, rel

@@ -130,8 +130,7 @@ def test_stacked_scan_decode_respects_window():
     # amplifying benign 1-ulp scan-vs-loop fusion differences through int4
     # quantization boundaries (same recipe as test_prefetch_scan); window 4
     # still binds at decode position 5 (keys 2..5 visible)
-    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True,
-                         fuse_attn="off")
+    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True)
     prompt = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(2, 5)))
     caches = [QuantKVCache.create(2, 128, cfg.num_key_value_heads,
                                   cfg.head_dim, jnp.float32)

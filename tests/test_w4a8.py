@@ -4,7 +4,8 @@ prefetch-scan decode — must agree with each other and beat W4A4 accuracy.
 
 The north star (BASELINE.json) names W4A4/W4A8 explicitly; the reference
 only ever simulates act bits via quant_bits (fake_quant.py:209-374 uses one
-width for both), so the split-width recipe is a TPU-framework capability.
+width for both), so the split-width recipe is this framework's own
+capability.
 """
 
 import dataclasses
@@ -100,8 +101,7 @@ def test_w4a8_prefetch_scan_decode_matches_per_layer(setup):
     qcfg = w4a8_group(group_size=16, salient_prop=0.05)
     packed = pack_model("llama", params, cfg, qcfg, input_feat=feat,
                         compute_dtype=jnp.float32, nibble=True)
-    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True,
-                         fuse_attn="off")
+    ctx = ForwardContext(quant=qcfg, compute="int", interpret=True)
     rng = np.random.default_rng(2)
     prompt = jnp.asarray(rng.integers(0, cfg.vocab_size, size=(2, 5)))
     caches = [QuantKVCache.create(2, 128, cfg.num_key_value_heads,
